@@ -64,6 +64,11 @@ def pytest_configure(config):
         "chaos: fault-injection tests driving collective kernels under a "
         "FaultPlan in interpret mode (see tests/test_resilience.py)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs the PyTorch port's CUDA kernels on a card; skips without "
+        "one (see tests/test_torch_cuda.py)",
+    )
 
 
 # ---------------------------------------------------------------------------
