@@ -19,8 +19,10 @@ from triton_dist_tpu_torch.kernels import (
     decode_reference,
     flash_attention,
     flash_decode,
+    group_gemm_swiglu,
+    group_swiglu_reference,
 )
-from triton_dist_tpu_torch.models import PRESETS, DenseLLM, DenseParams, Engine, init_params
+from triton_dist_tpu_torch.models import PRESETS, DenseLLM, DenseParams, Engine, Qwen3MoE, init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +132,56 @@ def test_engine_on_cuda_matches_cpu(cuda):
     want = Engine(DenseLLM(cfg, p_cpu, device="cpu"), max_len=32).serve(ids, gen_len=8)
     got = Engine(DenseLLM(cfg, p_gpu, device=cuda), max_len=32).serve(ids, gen_len=8)
     torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+
+
+# (E, d, f): test-moe's experts and Qwen3-30B-A3B's.
+SWIGLU_SIZES = {"test": (8, 64, 48), "served": (128, 2048, 768)}
+
+
+@pytest.mark.parametrize("c", [8, 24, 104])
+@pytest.mark.parametrize("size", list(SWIGLU_SIZES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_group_gemm_swiglu_kernel_vs_plain(cuda, dtype, size, c):
+    """C = 8 is every decode step (half of each 16-row mma tile masked);
+    24 and 104 are ragged against the kernel's 64-row tiles."""
+    e, d, f = SWIGLU_SIZES[size]
+    gen = torch.Generator(device=cuda).manual_seed(c + d)
+    x = _randn(gen, (e, c, d), dtype, cuda)
+    wg = (torch.randn((e, d, f), generator=gen, device=cuda) * d ** -0.5).to(dtype)
+    wu = (torch.randn((e, d, f), generator=gen, device=cuda) * d ** -0.5).to(dtype)
+    before = group_gemm_swiglu.launches
+    got = group_gemm_swiglu(x, wg, wu)
+    torch.cuda.synchronize()
+    assert group_gemm_swiglu.launches == before + 1
+    assert got.shape == (e, c, f) and got.dtype == dtype
+    _assert_close(got, group_swiglu_reference(x, wg, wu), dtype)
+
+
+def test_group_gemm_swiglu_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(4, 8, 64, device=cuda)
+    w = torch.zeros(4, 64, 48, device=cuda)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        group_gemm_swiglu(x.half(), w.half(), w.half())
+    with pytest.raises(ValueError, match="do not fit"):
+        group_gemm_swiglu(x, w[:, :32].contiguous(), w[:, :32].contiguous())
+    with pytest.raises(ValueError, match="bad shapes"):
+        group_gemm_swiglu(x, w, w[..., :40].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        group_gemm_swiglu(x.transpose(1, 2).contiguous().transpose(1, 2), w, w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        xb, wb = x[..., :60].bfloat16().contiguous(), w[:, :60].bfloat16().contiguous()
+        group_gemm_swiglu(xb, wb, wb)
+
+
+def test_moe_engine_on_cuda_matches_cpu(cuda):
+    """test-moe (fp32, 8 experts, top-2): greedy streams through the CUDA
+    kernels equal the plain versions' on the CPU, in batch 2 (decode takes
+    the T < 8 branch) and batch 8 (decode takes ``tp_moe_ar_shard``)."""
+    cfg = PRESETS["test-moe"]
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    p_gpu = DenseParams(**{k: None if t is None else t.to(cuda) for k, t in vars(p_cpu).items()})
+    ids = torch.randint(0, cfg.vocab_size, (8, 12), generator=torch.Generator().manual_seed(5))
+    for rows in (2, 8):
+        want = Engine(Qwen3MoE(cfg, p_cpu, device="cpu"), max_len=32).serve(ids[:rows], gen_len=8)
+        got = Engine(Qwen3MoE(cfg, p_gpu, device=cuda), max_len=32).serve(ids[:rows], gen_len=8)
+        torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)

@@ -11,6 +11,8 @@ import sys
 import pytest
 import torch
 
+torch.set_num_threads(2)  # six test workers share the host
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "triton_dist_tpu_torch"
 
@@ -54,7 +56,7 @@ def test_no_jax_or_jax_package_imports(path):
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     from triton_dist_tpu_torch import resolve_device
-    from triton_dist_tpu_torch.models import PRESETS, DenseLLM, init_params
+    from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Qwen3MoE, init_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = PRESETS["test-dense"]
@@ -64,6 +66,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
         DenseLLM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Qwen3MoE(PRESETS["test-moe"])
     assert resolve_device("cpu") == torch.device("cpu")
     assert DenseLLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).device.type == "cpu"
 

@@ -16,6 +16,10 @@ from triton_dist_tpu.kernels.flash_attn import flash_attention as jax_flash_atte
 from triton_dist_tpu.kernels.flash_decode import flash_decode as jax_flash_decode
 from triton_dist_tpu_torch.kernels import flash_attention, flash_decode
 
+# Six test workers share the host with the JAX suite: keep torch's intra-op
+# pool small.
+torch.set_num_threads(2)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

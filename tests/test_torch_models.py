@@ -26,6 +26,10 @@ from triton_dist_tpu.models import Engine as JEngine
 from triton_dist_tpu_torch.layers import TP_Attn, RMSNorm, apply_rope
 from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, params_from_numpy
 
+# Six test workers share the host with the JAX suite: keep torch's intra-op
+# pool small.
+torch.set_num_threads(2)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 IDS = [[3, 17, 42, 7, 99, 5, 23, 11]]
 

@@ -5,9 +5,10 @@ and never ``jax``, and nothing of ``triton_dist_tpu``: it keeps its own
 copies of what it needs. Module names mirror the JAX package's, so each
 counterpart is found under the same path.
 
-The first slice serves the dense Qwen3-class model at tensor-parallel
-world 1: ``models.Engine`` over ``models.DenseLLM``, with hand-written
-CUDA kernels for flash attention (prefill) and flash decode.
+It serves the Qwen3-class models at tensor-parallel world 1:
+``models.Engine`` over ``models.DenseLLM`` or ``models.Qwen3MoE``, with
+hand-written CUDA kernels for flash attention (prefill), flash decode and
+the MoE layers' grouped gate/up GEMM with its SwiGLU.
 """
 
 from triton_dist_tpu_torch.runtime.platform import resolve_device  # noqa: F401

@@ -3,9 +3,14 @@ version. Every wrapper counts its launches in ``<wrapper>.launches``."""
 
 from triton_dist_tpu_torch.kernels.flash_attn import attention_reference, flash_attention
 from triton_dist_tpu_torch.kernels.flash_decode import decode_reference, flash_decode
+from triton_dist_tpu_torch.kernels.group_gemm import group_gemm_swiglu, group_swiglu_reference
 
-#: The kernel wrappers of the served path, by name.
-KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode}
+#: The kernel wrappers of the served paths, by name.
+KERNELS = {
+    "flash_attention": flash_attention,
+    "flash_decode": flash_decode,
+    "group_gemm_swiglu": group_gemm_swiglu,
+}
 
 
 def reset_launch_counts() -> None:
@@ -23,6 +28,8 @@ __all__ = [
     "decode_reference",
     "flash_attention",
     "flash_decode",
+    "group_gemm_swiglu",
+    "group_swiglu_reference",
     "launch_counts",
     "reset_launch_counts",
 ]

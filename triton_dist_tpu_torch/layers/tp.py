@@ -1,12 +1,15 @@
-"""Tensor-parallel layers at world 1: RMSNorm, RoPE, attention, MLP.
+"""Tensor-parallel layers at world 1: RMSNorm, RoPE, attention, MLP, MoE.
 
 Counterpart of ``triton_dist_tpu/layers/tp.py`` (``RMSNorm``, ``apply_rope``,
-``TP_Attn``, ``TP_MLP``). At world 1 the JAX package's collective matmuls
-(``ag_gemm_shard``, ``ag_gemm_swiglu_shard``, ``gemm_rs_shard``,
+``TP_Attn``, ``TP_MLP``, ``TP_MoE``). At world 1 the JAX package's collective
+matmuls (``ag_gemm_shard``, ``ag_gemm_swiglu_shard``, ``gemm_rs_shard``,
 ``gemm_ar_shard``) all short-circuit to a plain fp32-accumulating dot, so
-every mode (``xla``, ``dist``, ``dist_ar``) is the same computation here:
-``torch.matmul`` plus the two attention kernels. World > 1 needs the
-one-sided communication layer and is not ported yet.
+every mode (``xla``, ``dist``, ``dist_ar``) of the dense layers is the same
+computation here: ``torch.matmul`` plus the two attention kernels.
+``TP_MoE`` keeps the JAX branches by mode and token count; at world 1 they
+all route every token with one capacity, and all but ``xla`` run the
+grouped gate/up kernel. World > 1 needs the one-sided communication layer
+and is not ported yet.
 
 The caches are updated in place (JAX returns new arrays): ``decode`` and
 ``prefill_chunk`` write their new K/V rows into the tensors they are given
@@ -20,11 +23,14 @@ from torch import nn
 
 from triton_dist_tpu_torch.kernels.flash_attn import flash_attention
 from triton_dist_tpu_torch.kernels.flash_decode import flash_decode
+from triton_dist_tpu_torch.kernels.group_gemm import group_gemm, group_gemm_swiglu, matmul_f32
+from triton_dist_tpu_torch.kernels.moe_comm import tp_moe_ar_shard, tp_moe_one_chunk, tp_moe_rs_shard
+from triton_dist_tpu_torch.kernels.moe_utils import CAPACITY_ALIGN
 
 MODES = ("xla", "dist", "dist_ar")
 _WORLD_GT_1 = (
     "tensor-parallel world > 1 is not ported yet: it needs the one-sided "
-    "layer and the collective-matmul kernels (ROADMAP queue 1 item 2, queue 2 items 0-6)"
+    "layer and the collective-matmul kernels (ROADMAP queue 1 item B)"
 )
 
 
@@ -36,16 +42,6 @@ def _check_mode(mode: str) -> None:
 def _check_world(world: int) -> None:
     if world != 1:
         raise NotImplementedError(_WORLD_GT_1)
-
-
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` accumulated and returned in fp32 (JAX's
-    ``jnp.dot(..., preferred_element_type=float32)``) for 2-D ``x``."""
-    if x.dtype == torch.float32:
-        return x @ w
-    if x.is_cuda:
-        return torch.mm(x, w, out_dtype=torch.float32)
-    return x.float() @ w.float()
 
 
 class RMSNorm(nn.Module):
@@ -94,6 +90,72 @@ class TP_MLP(nn.Module):
         u = matmul_f32(x, self.w_up)
         h = (torch.nn.functional.silu(g) * u).to(x.dtype)
         return h @ self.w_down
+
+
+#: TP-MoE routing capacity factor, shared by prefill and decode: every
+#: caller must route tokens alike, or the paths drop different tokens.
+MOE_CAPACITY_FACTOR = 2.0
+
+
+def _xla_swiglu(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
+    """The ``xla`` mode's gate/up: two plain grouped GEMMs, each cast to
+    x's dtype before the fp32 SwiGLU, as JAX does (no kernel)."""
+    g = group_gemm(xe, w_gate).float()
+    u = group_gemm(xe, w_up).float()
+    return (torch.nn.functional.silu(g) * u).to(xe.dtype)
+
+
+class TP_MoE(nn.Module):
+    """Tensor-parallel MoE: every expert's ff dimension split over the ranks
+    (at world 1, whole). Routing is top-k over the router's fp32 logits
+    with a per-expert capacity of ``MOE_CAPACITY_FACTOR``; the down
+    projection's partial sums reduce over the ranks in fp32.
+
+    Weights: ``w_router`` (d, E), ``w_gate`` and ``w_up`` (E, d, ff),
+    ``w_down`` (E, ff, d)."""
+
+    def __init__(self, w_router, w_gate, w_up, w_down, *, top_k: int = 8, world: int = 1):
+        super().__init__()
+        _check_world(world)
+        self.register_buffer("w_router", w_router, persistent=False)
+        self.register_buffer("w_gate", w_gate, persistent=False)
+        self.register_buffer("w_up", w_up, persistent=False)
+        self.register_buffer("w_down", w_down, persistent=False)
+        self.top_k = top_k
+        self.world = world
+
+    def forward(self, x: torch.Tensor, mode: str = "dist_ar") -> torch.Tensor:
+        """x (T, d) → (T, d), branch by branch as JAX's ``TP_MoE.__call__``:
+
+        * ``dist`` (x seq-sharded): T < ``CAPACITY_ALIGN`` gathers the
+          shards and takes the replicated path; otherwise the AG-MoE → MoE-RS
+          ring pair, ``tp_moe_rs_shard``.
+        * ``dist_ar`` (x replicated): T/world ≥ ``CAPACITY_ALIGN`` takes the
+          chunked ring, ``tp_moe_ar_shard``; smaller T routes all of x at
+          once, runs the grouped GEMMs and all-reduces.
+        * ``xla``: the same unchunked routing with plain grouped GEMMs (no
+          kernel), then a psum.
+
+        At world 1 the gather, the rings and the reductions are identities,
+        so every branch routes all T tokens with ``capacity_for(T, k, E,
+        MOE_CAPACITY_FACTOR)`` and combines in fp32 before one cast."""
+        _check_mode(mode)
+        world = self.world
+        t = x.shape[0]
+        weights = (self.w_router, self.w_gate, self.w_up, self.w_down)
+        kw = dict(top_k=self.top_k, capacity_factor=MOE_CAPACITY_FACTOR)
+        if mode == "dist":
+            if t < CAPACITY_ALIGN:
+                # JAX gathers the seq shards (the identity at world 1), runs
+                # the replicated path and slices its own chunk back (all of it).
+                return self.forward(x, mode="dist_ar")
+            return tp_moe_rs_shard(x, *weights, **kw)
+        if mode == "dist_ar" and t % world == 0 and t // world >= CAPACITY_ALIGN:
+            return tp_moe_ar_shard(x, *weights, **kw)
+        # Unchunked: all of x routed at once; the fp32 partials' psum /
+        # all-reduce over one rank is the identity.
+        swiglu = _xla_swiglu if mode == "xla" else group_gemm_swiglu
+        return tp_moe_one_chunk(x, *weights, swiglu=swiglu, **kw)
 
 
 class TP_Attn(nn.Module):

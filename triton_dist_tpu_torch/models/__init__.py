@@ -1,5 +1,5 @@
 from triton_dist_tpu_torch.models.config import PRESETS, ModelConfig
-from triton_dist_tpu_torch.models.dense import DenseLLM, DenseParams, init_params
+from triton_dist_tpu_torch.models.dense import DenseLLM, DenseParams, Qwen3MoE, init_params
 from triton_dist_tpu_torch.models.engine import Engine, sample_token
 from triton_dist_tpu_torch.models.kv_cache import KVCache
 from triton_dist_tpu_torch.models.weights import params_from_numpy
@@ -11,6 +11,7 @@ __all__ = [
     "Engine",
     "KVCache",
     "ModelConfig",
+    "Qwen3MoE",
     "init_params",
     "params_from_numpy",
     "sample_token",

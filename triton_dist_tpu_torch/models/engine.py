@@ -4,9 +4,11 @@
 
 PyTorch runs eagerly, so where JAX jit-compiles one program per shape and
 loops on the device with ``fori_loop``, this engine calls the model step by
-step from a Python loop (CUDA graphs are later work). Every backend name
-that resolves to the world-1 path (``xla``, ``dist``, ``dist_ar``) runs the
-same computation; ``mega`` is not ported. Caches are updated in place.
+step from a Python loop (CUDA graphs are later work). The model is a
+``DenseLLM`` or a ``Qwen3MoE``; the engine does not look at its MLP. The
+backends ``xla``, ``dist`` and ``dist_ar`` are ported (at world 1 the
+dense layers compute the same in each; the MoE layers' ``xla`` mode uses
+plain grouped GEMMs), ``mega`` is not. Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -46,14 +48,14 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
 
 
 class Engine:
-    """Serves a ``DenseLLM``: one-shot ``serve`` and the slot-granular
-    ``alloc_slots`` / ``prefill_into_slot`` / ``decode_steps`` of
-    continuous batching."""
+    """Serves a ``DenseLLM`` or ``Qwen3MoE``: one-shot ``serve`` and the
+    slot-granular ``alloc_slots`` / ``prefill_into_slot`` / ``decode_steps``
+    of continuous batching."""
 
     def __init__(self, model: DenseLLM, backend: str = "dist", max_len: int = 512,
                  sample: str = "greedy", temperature: float = 1.0, top_p: float = 1.0):
         if backend == "mega":
-            raise NotImplementedError("the mega backend is not ported yet (ROADMAP queue 1 item 9)")
+            raise NotImplementedError("the mega backend is not ported yet (ROADMAP queue 1 item M)")
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of {_BACKENDS}")
         self.model = model

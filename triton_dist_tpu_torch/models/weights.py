@@ -3,7 +3,8 @@
 ``params_from_numpy`` takes the JAX parameters field by field as numpy
 arrays (``{name: np.asarray(getattr(jax_params, name))}``) and returns the
 port's ``DenseParams`` on ``device``, so both packages compute the same
-model. At world 1 nothing is sharded, so every array is taken whole.
+model, dense or MoE (router and 4-D expert slabs). At world 1 nothing is
+sharded, so every array is taken whole.
 """
 
 from __future__ import annotations
@@ -35,7 +36,14 @@ def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
     c = config
     device = resolve_device(device)
     dt = torch_dtype(c)
-    L, d, hd, ff, V = c.num_layers, c.hidden_size, c.head_dim, c.intermediate_size, c.vocab_size
+    L, d, hd, V = c.num_layers, c.hidden_size, c.head_dim, c.vocab_size
+    if c.is_moe:
+        e, ffe = c.num_experts, c.moe_intermediate_size
+        mlp = {"mlp_gate": (L, e, d, ffe), "mlp_up": (L, e, d, ffe), "mlp_down": (L, e, ffe, d),
+               "router": (L, d, e)}
+    else:
+        ff = c.intermediate_size
+        mlp = {"mlp_gate": (L, d, ff), "mlp_up": (L, d, ff), "mlp_down": (L, ff, d), "router": None}
     expect = {
         "embed": (V, d),
         "ln1": (L, d),
@@ -44,20 +52,18 @@ def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
         "q_norm": (L, hd),
         "k_norm": (L, hd),
         "ln2": (L, d),
-        "mlp_gate": (L, d, ff),
-        "mlp_up": (L, d, ff),
-        "mlp_down": (L, ff, d),
+        **mlp,
         "final_norm": (d,),
         "lm_head": (d, V),
     }
     out = {}
     for f in dataclasses.fields(DenseParams):
-        if f.name == "router":
-            if arrays.get("router") is not None:
-                raise NotImplementedError("MoE weights are not ported yet")
-            out["router"] = None
+        if expect[f.name] is None:  # the dense model has no router
+            if arrays.get(f.name) is not None:
+                raise ValueError(f"{f.name}: given for a dense config")
+            out[f.name] = None
             continue
-        if f.name not in arrays:
+        if arrays.get(f.name) is None:
             raise KeyError(f"missing parameter {f.name!r}")
         a = np.asarray(arrays[f.name])
         if a.shape != expect[f.name]:
