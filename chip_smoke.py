@@ -11,20 +11,22 @@ then, on the card:
 1. prints the card (``nvidia-smi`` name and power limit) and the build time;
 2. holds each kernel against its plain PyTorch version at the shapes the
    served paths give it (bf16) and times kernel, plain version, the
-   yardstick PyTorch call (``scaled_dot_product_attention`` for attention,
+   yardstick PyTorch calls (``scaled_dot_product_attention`` for attention,
    one ``torch.bmm`` of x against the concatenated gate and up weights for
-   the grouped SwiGLU; the port calls neither) and the card's bound for the
-   same work;
-3. serves a small dense model and the ``test-moe`` MoE model (fp32) through
-   ``Engine`` on CUDA and on the CPU (plain versions) and requires equal
-   greedy tokens and close logits;
+   the grouped SwiGLU, the cuBLAS products (and SDPA) of each mega decode
+   kernel; the port calls none of them) and the card's bound for the same
+   work;
+3. serves a small dense model, ``test-dense`` on the mega backend and the
+   ``test-moe`` MoE model (fp32) through ``Engine`` on CUDA and on the CPU
+   (plain versions) and requires equal greedy tokens and close logits;
 4. serves Qwen3-8B at full width and depth (36 layers, bf16, random weights
    from a seeded generator): four requests joined into four slots with
    ``prefill_into_slot`` and decoded together with ``decode_steps``, plus one
    batch-2 ``serve``, with the kernels' launch counts read around exactly
-   that run; then frees it and serves Qwen3-30B-A3B at full width and depth
-   (48 layers, 128 experts, top-8, bf16) with the same four requests and a
-   batch-8 ``serve``, its counts read around its own run;
+   that run, first on the ``dist`` backend and then, on the same model and
+   requests, on ``mega``; then frees it and serves Qwen3-30B-A3B at full
+   width and depth (48 layers, 128 experts, top-8, bf16) with the same four
+   requests and a batch-8 ``serve``, its counts read around its own run;
 5. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 It exits nonzero and prints no result when CUDA is unavailable, when run
@@ -67,6 +69,11 @@ SEED = 20261016
 # Capacities group_gemm_swiglu sees on the Qwen3-30B-A3B path (E = 128,
 # top-8, factor 2.0): decode at batch ≤ 8, and prefills of 777 and 1500.
 SWIGLU_CAPACITIES = (8, 104, 192)
+# The mega backend's fused decode kernels, timed at the Qwen3-8B decode step
+# of phase 4 (batch 4); the attention back-leg at the lengths of its slots
+# one step before a full cache.
+MEGA_KERNELS = ("fused_ln_qkv_rope", "fused_attn_back", "fused_mlp_block", "fused_norm_head")
+MEGA_LENGTHS = (1, 777, 1500, MAX_LEN - 1)
 
 
 def log(msg: str) -> None:
@@ -88,7 +95,10 @@ def smi_sample() -> str:
 
 
 def time_ms(fn, flush_buf, iters: int = 20, warmup: int = 3) -> float:
-    """Median of per-launch CUDA-event times, L2 flushed before each."""
+    """Median of per-launch CUDA-event times, L2 flushed before each. A spin
+    kernel of about 0.2 ms runs before the start event, so the card is busy
+    while the host prepares the call and the events bracket device time, not
+    the host's dispatch of the wrapper."""
     import torch
 
     for _ in range(warmup):
@@ -97,6 +107,7 @@ def time_ms(fn, flush_buf, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         flush_buf.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(400_000)
         start.record()
         fn()
         end.record()
@@ -121,7 +132,16 @@ def close(got, want, atol, rtol) -> float:
 _GEMM_WORDS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
 
 
+_MEGA_FAMILIES = (("qkv_partial", "fused_ln_qkv_rope"), ("qkv_epilogue", "fused_ln_qkv_rope"),
+                  ("attn_back", "fused_attn_back"), ("oproj_partial", "fused_attn_back"),
+                  ("mlp_tile", "fused_mlp_block"), ("mlp_reduce", "fused_mlp_block"),
+                  ("norm_head", "fused_norm_head"))
+
+
 def _family(kernel_name: str) -> str:
+    for word, family in _MEGA_FAMILIES:
+        if word in kernel_name:
+            return family
     if "flash_fwd" in kernel_name:
         return "flash_attention"
     if "flash_decode" in kernel_name:
@@ -314,6 +334,116 @@ def check_kernels(dev, flush_buf) -> dict[str, dict]:
     return entries
 
 
+def kernel_passes(fn, flush_buf, reps: int = 10) -> dict[str, float]:
+    """Device time (ms, mean over ``reps`` calls, L2 flushed before each) of
+    every CUDA kernel one call of ``fn`` launches, by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush_buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    passes = {}
+    for e in prof.events():
+        name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*", "", e.name)
+        if e.device_type != DeviceType.CUDA or "elementwise" in name:  # the flush
+            continue
+        passes[name] = passes.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return passes
+
+
+def check_mega_kernels(dev, flush_buf) -> dict[str, dict]:
+    """Phase 2, mega backend: each fused decode kernel against its plain
+    version at the Qwen3-8B decode step's shapes (bf16, batch 4), then
+    timed. The yardstick of each is the library calls for its products
+    (cuBLAS ``torch.matmul``; SDPA for the attention), timed together."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.kernels import mega_decode as mk
+    from triton_dist_tpu_torch.kernels.norm_rope import rmsnorm
+    from triton_dist_tpu_torch.models import PRESETS
+
+    c = PRESETS["qwen3-8b"]
+    d, ff, hq, hkv, hd, vocab = (c.hidden_size, c.intermediate_size, c.num_q_heads, c.num_kv_heads,
+                                 c.head_dim, c.vocab_size)
+    b = len(MEGA_LENGTHS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def norm_w(n):
+        return (torch.rand(n, generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+
+    lengths = torch.tensor(MEGA_LENGTHS, dtype=torch.int32, device=dev)
+    x = randn(b, d)
+    ln_w = norm_w(d)
+    xn = rmsnorm(x, ln_w, c.rms_eps)
+    wqkv = randn(d, (hq + 2 * hkv) * hd, scale=d ** -0.5)
+    qn, kn = norm_w(hd), norm_w(hd)
+    rope = dict(num_q_heads=hq, num_kv_heads=hkv, head_dim=hd, rope_theta=c.rope_theta, eps=c.rms_eps)
+    q, k_new, v_new = randn(b, hq, hd), randn(b, hkv, hd), randn(b, hkv, hd)
+    kc, vc = randn(b, hkv, MAX_LEN, hd), randn(b, hkv, MAX_LEN, hd)
+    wo = randn(hq * hd, d, scale=(hq * hd) ** -0.5)
+    o = randn(b, hq * hd)
+    mask = (torch.arange(MAX_LEN, device=dev)[None, :] <= lengths[:, None])[:, None, None, :]
+    wg, wu = randn(d, ff, scale=d ** -0.5), randn(d, ff, scale=d ** -0.5)
+    wd = randn(ff, d, scale=ff ** -0.5)
+    w_gu = torch.cat([wg, wu], dim=1)
+    h = randn(b, ff)
+    head = randn(d, vocab, scale=d ** -0.5)
+
+    cases = {
+        "fused_ln_qkv_rope": (
+            "triton_dist_tpu_torch/csrc/mega_ln_qkv_rope.cu", "triton_dist_tpu/megakernel/kernels.py:113",
+            lambda: mk.fused_ln_qkv_rope(x, ln_w, wqkv, qn, kn, lengths, **rope),
+            lambda: mk.ln_qkv_rope_reference(x, ln_w, wqkv, qn, kn, lengths, **rope),
+            lambda: torch.matmul(xn, wqkv), "matmul xn@wqkv", mk.ln_qkv_rope_cost(x, wqkv)),
+        "fused_attn_back": (
+            "triton_dist_tpu_torch/csrc/mega_attn_back.cu", "triton_dist_tpu/megakernel/kernels.py:310",
+            lambda: mk.fused_attn_back(q, k_new, v_new, kc, vc, lengths, wo),
+            lambda: mk.attn_back_reference(q, k_new, v_new, kc, vc, lengths, wo),
+            lambda: (F.scaled_dot_product_attention(q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+                     torch.matmul(o, wo)),
+            "SDPA + matmul o@wo", mk.attn_back_cost(q, kc, lengths, wo)),
+        "fused_mlp_block": (
+            "triton_dist_tpu_torch/csrc/mega_mlp_block.cu", "triton_dist_tpu/megakernel/kernels.py:31",
+            lambda: mk.fused_mlp_block(x, ln_w, wg, wu, wd, eps=c.rms_eps),
+            lambda: mk.mlp_block_reference(x, ln_w, wg, wu, wd, eps=c.rms_eps),
+            lambda: (torch.matmul(xn, w_gu), torch.matmul(h, wd)), "matmul xn@[wg|wu] + h@wd",
+            mk.mlp_block_cost(x, wg)),
+        "fused_norm_head": (
+            "triton_dist_tpu_torch/csrc/mega_norm_head.cu", "triton_dist_tpu/megakernel/kernels.py:581",
+            lambda: mk.fused_norm_head(x, ln_w, head, eps=c.rms_eps),
+            lambda: mk.norm_head_reference(x, ln_w, head, eps=c.rms_eps),
+            lambda: torch.matmul(xn, head), "matmul xn@lm_head", mk.norm_head_cost(x, head)),
+    }
+    entries = {}
+    for name, (source, replaces, kernel, plain, library, lib_label, (flops, nbytes)) in cases.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        err = max(close(g, w, BF16_ATOL, BF16_RTOL) for g, w in zip(got, want))
+        kernel_ms = time_ms(kernel, flush_buf)
+        plain_ms = time_ms(plain, flush_buf, iters=5)
+        lib_ms = time_ms(library, flush_buf)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        log(f"{name} qwen3-8b B={b} bf16: max|err| {err:.3e}; kernel_ms {kernel_ms}, plain_ms {plain_ms}, "
+            f"library_ms({lib_label}) {lib_ms}, bound_ms {b_ms} ({b_by}; {nbytes} bytes, {flops} FLOP); "
+            f"device ms by pass: {kernel_passes(kernel, flush_buf)}")
+        entries[name] = dict(name=name, route="cuda", source=source, replaces=replaces, ms=kernel_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             max_abs_err=err)
+    log(f"card after the mega kernels (clocks.sm, power.draw, temperature): {smi_sample()}")
+    return entries
+
+
 # ------------------------------------- 3. parity: CUDA vs CPU, small fp32
 
 def parity_fp32(dev) -> None:
@@ -355,6 +485,35 @@ def parity_fp32(dev) -> None:
         f"KV max|err| {err_kv:.3e} (tol {FP32_LOGITS_TOL}); serve and slot decode tokens equal "
         f"({tok_gpu.numel() + out_gpu.numel()} tokens)")
 
+    # The mega backend on test-dense: one decode step's logits, a serve, and
+    # a slot decode with slot 1 left free.
+    cfg = PRESETS["test-dense"]
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED + 4), "cpu")
+    m_cpu = DenseLLM(cfg, p_cpu, device="cpu")
+    m_gpu = DenseLLM(cfg, on_card(p_cpu), device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(SEED + 5))
+    e_cpu, e_gpu = Engine(m_cpu, backend="mega", max_len=64), Engine(m_gpu, backend="mega", max_len=64)
+    tok_cpu, tok_gpu = e_cpu.serve(ids, gen_len=10), e_gpu.serve(ids, gen_len=10)
+    if not torch.equal(tok_gpu.cpu(), tok_cpu):
+        raise AssertionError(f"mega greedy tokens differ:\ncuda {tok_gpu.tolist()}\ncpu  {tok_cpu.tolist()}")
+    c_cpu, c_gpu = e_cpu.kv_cache, e_gpu.kv_cache
+    err_kv = close(c_gpu.k.cpu(), c_cpu.k, FP32_LOGITS_TOL, FP32_LOGITS_TOL)
+    lg_cpu = e_cpu._decode(tok_cpu[:, -1], c_cpu, c_cpu.lengths)
+    lg_gpu = e_gpu._decode(tok_gpu[:, -1], c_gpu, c_gpu.lengths)
+    err_logits = close(lg_gpu.cpu(), lg_cpu, FP32_LOGITS_TOL, FP32_LOGITS_TOL)
+    outs = []
+    for eng in (e_cpu, e_gpu):
+        cache = eng.alloc_slots(3)
+        t0 = eng.prefill_into_slot(cache, 0, ids[:1])[0]
+        t2 = eng.prefill_into_slot(cache, 2, ids[1:, :7])[0]
+        out, _, cache, _ = eng.decode_steps(cache, torch.stack([t0, t0, t2]), torch.tensor([6, 0, 4]), 6)
+        outs.append((out.cpu(), cache.lengths.cpu().tolist()))
+    if not torch.equal(outs[1][0], outs[0][0]) or not outs[1][1] == outs[0][1] == [12 + 6, 0, 7 + 4]:
+        raise AssertionError(f"mega slot decode differs:\ncuda {outs[1]}\ncpu  {outs[0]}")
+    log(f"parity fp32 mega test-dense (L=2, d=64, Hq=8, Hkv=4, D=32): decode logits max|err| {err_logits:.3e}, "
+        f"KV max|err| {err_kv:.3e} (tol {FP32_LOGITS_TOL}); serve and slot decode tokens equal, slot 1 "
+        f"free (-1 cells, length 0)")
+
     # test-moe: prefill through the T < 8 branch and through tp_moe_rs_shard;
     # decode at batch 2 (the unchunked branch) and batch 8 (tp_moe_ar_shard).
     cfg = PRESETS["test-moe"]
@@ -382,19 +541,12 @@ def parity_fp32(dev) -> None:
 
 # ----------------------------------------------- 4. full-width serving
 
-def serve_full_width(preset: str, model_cls, dev, serve_rows: int, serve_prompt: int,
-                     serve_gen: int) -> dict[str, int]:
-    """Build ``preset`` at full width and depth with random bf16 weights and
-    serve it: four requests joined into four slots, ``DECODE_STEPS`` decode
-    steps of all four, then one ``serve`` of ``serve_rows`` prompts. The
-    launch counts are read around exactly that run and must be one per
-    layer per prefill (flash_attention) and per decode step (flash_decode),
-    and for a MoE model one per layer per prefill or decode step
-    (group_gemm_swiglu). Returns those counts."""
+def build_full_width(preset: str, model_cls, dev):
+    """``preset`` at full width and depth with random bf16 weights from a
+    seeded generator."""
     import torch
 
-    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from triton_dist_tpu_torch.models import PRESETS, Engine
+    from triton_dist_tpu_torch.models import PRESETS
 
     cfg = PRESETS[preset]
     torch.cuda.reset_peak_memory_stats()
@@ -405,7 +557,44 @@ def serve_full_width(preset: str, model_cls, dev, serve_rows: int, serve_prompt:
     shape = f"{cfg.num_experts} experts top-{cfg.top_k}, " if cfg.is_moe else ""
     log(f"{preset}: {cfg.num_layers} layers, {shape}{n_params / 1e9:.2f} B params bf16, "
         f"random init {time.perf_counter() - t0:.1f} s")
-    engine = Engine(model, backend="dist", max_len=MAX_LEN)
+    return model
+
+
+def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str, int]:
+    """One launch per layer per prefill (flash_attention) and per decode
+    step: flash_decode on ``dist``, the three fused layer kernels on
+    ``mega`` plus one ``fused_norm_head`` per step; for a MoE model one
+    group_gemm_swiglu per layer per prefill or decode step."""
+    layers = cfg.num_layers
+    mega = backend == "mega"
+    return {
+        "flash_attention": layers * prefills,
+        "flash_decode": 0 if mega else layers * steps,
+        "group_gemm_swiglu": layers * (prefills + steps) if cfg.is_moe else 0,
+        "fused_ln_qkv_rope": layers * steps if mega else 0,
+        "fused_attn_back": layers * steps if mega else 0,
+        "fused_mlp_block": layers * steps if mega else 0,
+        "fused_norm_head": steps if mega else 0,
+    }
+
+
+def serve_full_width(model, preset: str, backend: str, dev, serve_rows: int, serve_prompt: int,
+                     serve_gen: int, profile_prefill: bool = True) -> dict[str, int]:
+    """Serve ``model`` through ``Engine(backend=...)``: four requests joined
+    into four slots, ``DECODE_STEPS`` decode steps of all four, then one
+    ``serve`` of ``serve_rows`` prompts (the same prompts for every backend:
+    they come from a generator seeded here). The launch counts are read
+    around exactly that run and must equal ``expected_launches``. Returns
+    those counts."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import Engine
+
+    cfg = model.config
+    tag = f"{preset} [{backend}]"
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(model, backend=backend, max_len=MAX_LEN)
     vocab = cfg.vocab_size
     tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
@@ -443,15 +632,10 @@ def serve_full_width(preset: str, model_cls, dev, serve_rows: int, serve_prompt:
     serve_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
 
-    layers, prefills = cfg.num_layers, len(prompts) + 1
-    steps = DECODE_STEPS + serve_gen - 1
-    want = {
-        "flash_attention": layers * prefills,
-        "flash_decode": layers * steps,
-        "group_gemm_swiglu": layers * (prefills + steps) if cfg.is_moe else 0,
-    }
+    prefills, steps = len(prompts) + 1, DECODE_STEPS + serve_gen - 1
+    want = expected_launches(cfg, backend, prefills, steps)
     if launches != want:
-        raise AssertionError(f"{preset}: launches on the served path {launches}, expected {want}")
+        raise AssertionError(f"{tag}: launches on the served path {launches}, expected {want}")
     for name, toks in (("decode_steps", out), ("serve", served)):
         if not bool(((toks >= 0) & (toks < vocab)).all()):
             raise AssertionError(f"{name} produced tokens outside the vocabulary: {toks.tolist()}")
@@ -459,33 +643,34 @@ def serve_full_width(preset: str, model_cls, dev, serve_rows: int, serve_prompt:
     if cache.lengths.tolist() != want_len or rem.tolist() != [0] * 4:
         raise AssertionError(f"slot lengths {cache.lengths.tolist()} != {want_len}")
     logits, _ = model.prefill(prompts[2])
-    step_logits, _, _ = model.decode(last, cache.k, cache.v, cache.lengths)
+    step_logits = engine._decode(last, cache, cache.lengths)
     if not (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step_logits).all())):
-        raise AssertionError(f"{preset}: non-finite logits at full width")
+        raise AssertionError(f"{tag}: non-finite logits at full width")
     for n, t in zip(FLASH_PROMPTS, ttft):
-        log(f"{preset} request prompt={n}: TTFT {t:.2f} ms")
-    log(f"{preset} decode_steps B=4, {DECODE_STEPS} steps: {decode_ms:.2f} ms/step "
+        log(f"{tag} request prompt={n}: TTFT {t:.2f} ms")
+    log(f"{tag} decode_steps B=4, {DECODE_STEPS} steps: {decode_ms:.2f} ms/step "
         f"({4 * 1e3 / decode_ms:.1f} tokens/s); serve B={serve_rows} {serve_prompt}+{serve_gen} tokens: "
         f"{serve_ms:.1f} ms")
-    log(f"{preset} launches on the served path ({prefills} prefills, {steps} decode steps): {launches}")
-    log(f"{preset} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+    log(f"{tag} launches on the served path ({prefills} prefills, {steps} decode steps): {launches}")
+    log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"first tokens {tokens0}, decode row 0 {out[0, :8].tolist()}")
-    log(f"card after {preset} decode (clocks.sm, power.draw, temperature): {smi_sample()}")
+    log(f"card after {tag} decode (clocks.sm, power.draw, temperature): {smi_sample()}")
 
     # Where a step's time goes: one profiled prefill and one profiled
     # 4-step decode chunk, after the counted run.
-    for label, fn, n_steps, unprofiled in (
-        (f"prefill {FLASH_PROMPTS[2]} tokens", lambda: model.prefill(prompts[2]), 1, ttft[2]),
-        ("decode_steps B=4", lambda: engine.decode_steps(cache, last, torch.full((4,), 4), 4), 4, decode_ms),
-    ):
+    windows = [("decode_steps B=4", lambda: engine.decode_steps(cache, last, torch.full((4,), 4), 4), 4,
+                decode_ms)]
+    if profile_prefill:
+        windows.insert(0, (f"prefill {FLASH_PROMPTS[2]} tokens", lambda: model.prefill(prompts[2]), 1, ttft[2]))
+    for label, fn, n_steps, unprofiled in windows:
         wall, busy, families, n_kernels = profile_window(fn)
         if busy is None:
-            log(f"{preset} profile {label}: wall {wall / n_steps:.2f} ms/step, device time not measured "
+            log(f"{tag} profile {label}: wall {wall / n_steps:.2f} ms/step, device time not measured "
                 "(the profiler recorded no CUDA kernels)")
             continue
         shares = ", ".join(f"{k} {v / n_steps:.3f} ms" for k, v in
                            sorted(families.items(), key=lambda kv: -kv[1]))
-        log(f"{preset} profile {label}: profiled wall {wall / n_steps:.2f} ms/step, device busy "
+        log(f"{tag} profile {label}: profiled wall {wall / n_steps:.2f} ms/step, device busy "
             f"{busy / n_steps:.3f} ms/step ({100 * busy / wall:.1f} % of the profiled wall; the "
             f"unprofiled run took {unprofiled:.2f} ms/step), {n_kernels / n_steps:.0f} kernels/step; "
             f"by kernel family per step: {shares}")
@@ -493,6 +678,31 @@ def serve_full_width(preset: str, model_cls, dev, serve_rows: int, serve_prompt:
         for tokens, mode in ((4, "dist_ar"), (FLASH_PROMPTS[2], "dist")):
             moe_layer_breakdown(model, dev, tokens, mode)
     return launches
+
+
+def compare_first_step(model, dev) -> None:
+    """One decode step of the four served slots on ``mega`` and on ``dist``
+    from the same caches (bf16): printed, not gated, since the backends
+    round at different points."""
+    import torch
+
+    from triton_dist_tpu_torch.models import Engine
+
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = [torch.randint(0, model.config.vocab_size, (1, n), generator=tgen, device=dev)
+               for n in FLASH_PROMPTS]
+    dist, mega = Engine(model, backend="dist", max_len=MAX_LEN), Engine(model, backend="mega", max_len=MAX_LEN)
+    cache = dist.alloc_slots(len(prompts))
+    tokens = torch.stack([dist.prefill_into_slot(cache, slot, ids)[0] for slot, ids in enumerate(prompts)])
+    k0, v0 = cache.k.clone(), cache.v.clone()
+    lg_dist = dist._decode(tokens, cache, cache.lengths)
+    cache.k.copy_(k0)
+    cache.v.copy_(v0)
+    lg_mega = mega._decode(tokens, cache, cache.lengths)
+    same = (lg_dist.argmax(-1) == lg_mega.argmax(-1)).tolist()
+    log(f"qwen3-8b first decode step, mega vs dist (bf16, B=4): max |logit diff| "
+        f"{(lg_mega - lg_dist).abs().max().item()}, max |logit| {lg_dist.abs().max().item()}, "
+        f"greedy tokens equal {sum(same)}/{len(same)}")
 
 
 def moe_layer_breakdown(model, dev, tokens: int, mode: str) -> None:
@@ -575,21 +785,31 @@ def main() -> int:
 
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     entries = check_kernels(dev, flush_buf)
+    entries.update(check_mega_kernels(dev, flush_buf))
     del flush_buf
     parity_fp32(dev)
 
-    launches = serve_full_width("qwen3-8b", DenseLLM, dev, serve_rows=2, serve_prompt=128, serve_gen=16)
+    # Qwen3-8B on the default backend and on mega: one model object, the
+    # same requests; each run's counts are read around that run alone.
+    model = build_full_width("qwen3-8b", DenseLLM, dev)
+    runs = [serve_full_width(model, "qwen3-8b", "dist", dev, serve_rows=2, serve_prompt=128, serve_gen=16)]
+    runs.append(serve_full_width(model, "qwen3-8b", "mega", dev, serve_rows=2, serve_prompt=128, serve_gen=16,
+                                 profile_prefill=False))
+    compare_first_step(model, dev)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     log(f"qwen3-8b freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
-    moe_launches = serve_full_width("qwen3-moe-30b-a3b", Qwen3MoE, dev, serve_rows=8, serve_prompt=64,
-                                    serve_gen=8)
+    model = build_full_width("qwen3-moe-30b-a3b", Qwen3MoE, dev)
+    runs.append(serve_full_width(model, "qwen3-moe-30b-a3b", "dist", dev, serve_rows=8, serve_prompt=64,
+                                 serve_gen=8))
+    del model
 
     # --------------------------------------------------------- 5. results
     kernels = []
-    for name in ("flash_attention", "flash_decode", "group_gemm_swiglu"):
+    for name in ("flash_attention", "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS):
         e = dict(entries[name])
-        e["launches"] = launches[name] + moe_launches[name]
+        e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",
                                            "max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")})

@@ -22,6 +22,7 @@ from triton_dist_tpu_torch.kernels import (
     group_gemm_swiglu,
     group_swiglu_reference,
 )
+from triton_dist_tpu_torch.kernels import mega_decode as mk
 from triton_dist_tpu_torch.models import PRESETS, DenseLLM, DenseParams, Engine, Qwen3MoE, init_params
 
 pytestmark = pytest.mark.cuda
@@ -185,3 +186,147 @@ def test_moe_engine_on_cuda_matches_cpu(cuda):
         want = Engine(Qwen3MoE(cfg, p_cpu, device="cpu"), max_len=32).serve(ids[:rows], gen_len=8)
         got = Engine(Qwen3MoE(cfg, p_gpu, device=cuda), max_len=32).serve(ids[:rows], gen_len=8)
         torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+
+
+# ------------------------------------------------- the mega decode kernels
+
+# (d, ff, hq, hkv, hd, V): test-dense's widths and Qwen3-8B's.
+MEGA_SIZES = {"test": (64, 128, 8, 4, 32, 256), "qwen3-8b": (4096, 12288, 32, 8, 128, 151936)}
+MEGA_ROWS = [1, 4, 8]
+
+
+def _weight(gen, shape, dtype, device):
+    return (torch.randn(shape, generator=gen, device=device) * shape[0] ** -0.5).to(dtype)
+
+
+def _norm_weight(gen, n, dtype, device):
+    return (torch.rand(n, generator=gen, device=device) + 0.5).to(dtype)
+
+
+def _counted(fn, *args, **kwargs):
+    before = fn.launches
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("b", MEGA_ROWS)
+@pytest.mark.parametrize("size", list(MEGA_SIZES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_fused_ln_qkv_rope_kernel_vs_plain(cuda, dtype, size, b):
+    d, _, hq, hkv, hd, _ = MEGA_SIZES[size]
+    gen = torch.Generator(device=cuda).manual_seed(b + d)
+    x = _randn(gen, (b, d), dtype, cuda)
+    ln_w, qn, kn = _norm_weight(gen, d, dtype, cuda), _norm_weight(gen, hd, dtype, cuda), _norm_weight(gen, hd, dtype, cuda)
+    wqkv = _weight(gen, (d, (hq + 2 * hkv) * hd), dtype, cuda)
+    pos = torch.tensor([0, 1, 777, 2047, 5, 100, 1500, 9][:b], dtype=torch.int32, device=cuda)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv, head_dim=hd, rope_theta=1e6, eps=1e-6)
+    got = _counted(mk.fused_ln_qkv_rope, x, ln_w, wqkv, qn, kn, pos, **kw)
+    want = mk.ln_qkv_rope_reference(x, ln_w, wqkv, qn, kn, pos, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.is_contiguous()
+        _assert_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("b", MEGA_ROWS)
+@pytest.mark.parametrize("size", list(MEGA_SIZES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_fused_attn_back_kernel_vs_plain(cuda, dtype, size, b):
+    """Lengths 0, S - 1 and S (the full cache, where nothing is spliced)
+    among the rows, against the plain splice → decode → o-projection."""
+    d, _, hq, hkv, hd, _ = MEGA_SIZES[size]
+    s = 128 if size == "test" else 2048
+    gen = torch.Generator(device=cuda).manual_seed(b + d + 1)
+    q = _randn(gen, (b, hq, hd), dtype, cuda)
+    kn, vn = _randn(gen, (b, hkv, hd), dtype, cuda), _randn(gen, (b, hkv, hd), dtype, cuda)
+    kc, vc = _randn(gen, (b, hkv, s, hd), dtype, cuda), _randn(gen, (b, hkv, s, hd), dtype, cuda)
+    wo = _weight(gen, (hq * hd, d), dtype, cuda)
+    lengths = torch.tensor([0, s - 1, s, 17, 1, s // 2, 3, s - 2][:b], dtype=torch.int32, device=cuda)
+    k_before, v_before = kc.clone(), vc.clone()
+    got = _counted(mk.fused_attn_back, q, kn, vn, kc, vc, lengths, wo)
+    assert got.dtype == torch.float32 and got.shape == (b, d)
+    assert torch.equal(kc, k_before) and torch.equal(vc, v_before)  # the caches are only read
+    _assert_close(got, mk.attn_back_reference(q, kn, vn, kc, vc, lengths, wo), dtype)
+
+
+@pytest.mark.parametrize("b", MEGA_ROWS)
+@pytest.mark.parametrize("size", list(MEGA_SIZES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_fused_mlp_block_kernel_vs_plain(cuda, dtype, size, b):
+    d, ff, *_ = MEGA_SIZES[size]
+    gen = torch.Generator(device=cuda).manual_seed(b + d + 2)
+    x = _randn(gen, (b, d), dtype, cuda)
+    ln_w = _norm_weight(gen, d, dtype, cuda)
+    wg, wu, wd = _weight(gen, (d, ff), dtype, cuda), _weight(gen, (d, ff), dtype, cuda), _weight(gen, (ff, d), dtype, cuda)
+    for residual in (False, True):
+        got = _counted(mk.fused_mlp_block, x, ln_w, wg, wu, wd, residual=residual)
+        assert got.dtype == dtype
+        _assert_close(got, mk.mlp_block_reference(x, ln_w, wg, wu, wd, residual=residual), dtype)
+
+
+@pytest.mark.parametrize("b", MEGA_ROWS)
+@pytest.mark.parametrize("size", list(MEGA_SIZES))
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_fused_norm_head_kernel_vs_plain(cuda, dtype, size, b):
+    d, *_, vocab = MEGA_SIZES[size]
+    gen = torch.Generator(device=cuda).manual_seed(b + d + 3)
+    x = _randn(gen, (b, d), dtype, cuda)
+    nw = _norm_weight(gen, d, dtype, cuda)
+    head = _weight(gen, (d, vocab), dtype, cuda)
+    got = _counted(mk.fused_norm_head, x, nw, head)
+    assert got.dtype == torch.float32 and got.shape == (b, vocab)
+    _assert_close(got, mk.norm_head_reference(x, nw, head), dtype)
+
+
+def test_mega_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(2, 64, device=cuda)
+    w = torch.zeros(64, 128, device=cuda)
+    nw = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        mk.fused_norm_head(x.half(), nw.half(), w.half())
+    with pytest.raises(ValueError, match="one device"):
+        mk.fused_norm_head(x, nw.cpu(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.fused_norm_head(x, nw, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="must be"):
+        mk.fused_mlp_block(x, nw, w, w, w.t().contiguous().bfloat16())
+    with pytest.raises(ValueError, match="at most 8 rows"):
+        mk.fused_mlp_block(torch.zeros(9, 64, device=cuda), nw, w, w, w.t().contiguous())
+    q = torch.zeros(2, 8, 32, device=cuda)
+    kv = torch.zeros(2, 4, 32, device=cuda)
+    cache = torch.zeros(2, 4, 16, 32, device=cuda)
+    wo = torch.zeros(256, 64, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        mk.fused_attn_back(q, kv, kv, cache, cache, torch.ones(2, dtype=torch.int64, device=cuda), wo)
+    with pytest.raises(ValueError, match="bad shapes"):
+        mk.fused_attn_back(q, kv, kv, cache, cache, torch.ones(2, dtype=torch.int32, device=cuda), wo[:128])
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.fused_ln_qkv_rope(x, nw, torch.zeros(512, 64, device=cuda).t(), nw[:32], nw[:32], pos,
+                             num_q_heads=8, num_kv_heads=4, head_dim=32)
+
+
+def test_mega_engine_on_cuda_matches_cpu(cuda):
+    """test-dense (fp32): the mega backend's greedy streams through the CUDA
+    kernels equal the plain versions' on the CPU, in serve and in a slot
+    decode with a free slot."""
+    cfg = PRESETS["test-dense"]
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    p_gpu = DenseParams(**{k: None if t is None else t.to(cuda) for k, t in vars(p_cpu).items()})
+    m_cpu, m_gpu = DenseLLM(cfg, p_cpu, device="cpu"), DenseLLM(cfg, p_gpu, device=cuda)
+    ids = torch.tensor([[3, 17, 42, 7, 99, 5, 23, 11], [1, 2, 3, 4, 5, 6, 7, 8]])
+    want = Engine(m_cpu, backend="mega", max_len=32).serve(ids, gen_len=8)
+    got = Engine(m_gpu, backend="mega", max_len=32).serve(ids, gen_len=8)
+    torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+    outs = []
+    for model in (m_cpu, m_gpu):
+        engine = Engine(model, backend="mega", max_len=32)
+        cache = engine.alloc_slots(3)
+        t0, cache = engine.prefill_into_slot(cache, 0, ids[:1])
+        t2, cache = engine.prefill_into_slot(cache, 2, ids[1:, :5])
+        tokens = torch.stack([t0, t0, t2])
+        out, _, cache, _ = engine.decode_steps(cache, tokens, torch.tensor([5, 0, 3]), 5)
+        outs.append((out.cpu(), cache.lengths.cpu()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
+    assert outs[1][1].tolist() == outs[0][1].tolist() == [8 + 5, 0, 5 + 3]

@@ -25,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules if k == "triton_dist_tpu" or k.startswith("triton_dist_tpu."))
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -35,8 +35,12 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    # every module of the package (all but its own __init__) was imported
-    assert int(out.stdout.strip()) == len(list(PKG.rglob("*.py"))) - 1
+    names = out.stdout.split()
+    # every module of the package (all but its own __init__) was imported,
+    # the mega backend's task graph, builder and kernels among them
+    assert len(names) == len(list(PKG.rglob("*.py"))) - 1
+    for mod in ("graph", "builder", "kernels"):
+        assert f"triton_dist_tpu_torch.megakernel.{mod}" in names
 
 
 _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+(jax\b|triton_dist_tpu(?!_torch)\b)", re.M)

@@ -8,7 +8,9 @@ counterpart is found under the same path.
 It serves the Qwen3-class models at tensor-parallel world 1:
 ``models.Engine`` over ``models.DenseLLM`` or ``models.Qwen3MoE``, with
 hand-written CUDA kernels for flash attention (prefill), flash decode and
-the MoE layers' grouped gate/up GEMM with its SwiGLU.
+the MoE layers' grouped gate/up GEMM with its SwiGLU. For the dense model
+``Engine(backend="mega")`` decodes through ``megakernel``: every step is
+one recorded task graph lowered to four fused decode kernels.
 """
 
 from triton_dist_tpu_torch.runtime.platform import resolve_device  # noqa: F401

@@ -4,12 +4,26 @@ version. Every wrapper counts its launches in ``<wrapper>.launches``."""
 from triton_dist_tpu_torch.kernels.flash_attn import attention_reference, flash_attention
 from triton_dist_tpu_torch.kernels.flash_decode import decode_reference, flash_decode
 from triton_dist_tpu_torch.kernels.group_gemm import group_gemm_swiglu, group_swiglu_reference
+from triton_dist_tpu_torch.kernels.mega_decode import (
+    attn_back_reference,
+    fused_attn_back,
+    fused_ln_qkv_rope,
+    fused_mlp_block,
+    fused_norm_head,
+    ln_qkv_rope_reference,
+    mlp_block_reference,
+    norm_head_reference,
+)
 
 #: The kernel wrappers of the served paths, by name.
 KERNELS = {
     "flash_attention": flash_attention,
     "flash_decode": flash_decode,
     "group_gemm_swiglu": group_gemm_swiglu,
+    "fused_ln_qkv_rope": fused_ln_qkv_rope,
+    "fused_attn_back": fused_attn_back,
+    "fused_mlp_block": fused_mlp_block,
+    "fused_norm_head": fused_norm_head,
 }
 
 
@@ -25,11 +39,19 @@ def launch_counts() -> dict[str, int]:
 __all__ = [
     "KERNELS",
     "attention_reference",
+    "attn_back_reference",
     "decode_reference",
     "flash_attention",
     "flash_decode",
+    "fused_attn_back",
+    "fused_ln_qkv_rope",
+    "fused_mlp_block",
+    "fused_norm_head",
     "group_gemm_swiglu",
     "group_swiglu_reference",
+    "ln_qkv_rope_reference",
+    "mlp_block_reference",
+    "norm_head_reference",
     "launch_counts",
     "reset_launch_counts",
 ]

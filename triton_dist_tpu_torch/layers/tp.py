@@ -26,6 +26,7 @@ from triton_dist_tpu_torch.kernels.flash_decode import flash_decode
 from triton_dist_tpu_torch.kernels.group_gemm import group_gemm, group_gemm_swiglu, matmul_f32
 from triton_dist_tpu_torch.kernels.moe_comm import tp_moe_ar_shard, tp_moe_one_chunk, tp_moe_rs_shard
 from triton_dist_tpu_torch.kernels.moe_utils import CAPACITY_ALIGN
+from triton_dist_tpu_torch.kernels.norm_rope import apply_rope, rmsnorm
 
 MODES = ("xla", "dist", "dist_ar")
 _WORLD_GT_1 = (
@@ -54,22 +55,7 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps)).to(x.dtype) * self.weight
-
-
-def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 1e6) -> torch.Tensor:
-    """Rotary embedding on split halves (rotate-half, as the JAX code does).
-
-    x: (B, H, S, D); pos: (B, S) absolute positions."""
-    d = x.shape[-1]
-    half = d // 2
-    freqs = theta ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    angles = pos[:, None, :, None].float() * freqs  # (B, 1, S, half)
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+        return rmsnorm(x, self.weight, self.eps)
 
 
 class TP_MLP(nn.Module):

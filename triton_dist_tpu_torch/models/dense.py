@@ -2,7 +2,8 @@
 
 Counterpart of ``triton_dist_tpu/models/dense.py`` (``DenseParams``,
 ``init_params``, ``DenseLLM.prefill_shard`` / ``prefill_chunk_shard`` /
-``decode_shard``, ``Qwen3MoE``; the megakernel branches are not ported).
+``decode_shard``, ``decode_shard_mega``, ``split_layer_params``,
+``Qwen3MoE``; the paged and speculative mega steps are not ported).
 Parameters are stacked over layers as in JAX; a Python loop over layers
 stands in for ``lax.scan``. The caches a step is given are updated in place.
 """
@@ -16,6 +17,8 @@ import torch
 
 from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
 from triton_dist_tpu_torch.layers.tp import TP_Attn, TP_MLP, TP_MoE, RMSNorm
+from triton_dist_tpu_torch.megakernel.builder import ModelBuilder
+from triton_dist_tpu_torch.megakernel.kernels import NEXT_SLICE, fused_norm_head
 from triton_dist_tpu_torch.models.config import ModelConfig, torch_dtype
 from triton_dist_tpu_torch.runtime.platform import resolve_device
 
@@ -195,7 +198,11 @@ class DenseLLM:
     @torch.no_grad()
     def decode(self, token, ks, vs, lengths, mode: str = "dist_ar"):
         """token (B,) → (logits (B, V) fp32, ks, vs): one step at positions
-        ``lengths``; writes each layer's new K/V into ``ks``/``vs`` in place."""
+        ``lengths``; writes each layer's new K/V into ``ks``/``vs`` in place.
+        ``mode="mega"`` is ``decode_mega``'s, which needs the per-layer
+        parameters and the step function."""
+        if mode == "mega":
+            raise ValueError("mega decode needs per-layer params and a step function: use decode_mega")
         token = self._tokens(token)
         x = self.params.embed[token]
         for i, (ln1, attn, ln2, mlp) in enumerate(self.layers):
@@ -203,6 +210,38 @@ class DenseLLM:
             x = x + a
             x = x + mlp(ln2(x), mode=_replicated(mode))  # JAX dense.py:355-358
         return self._logits(self.final_norm(x)), ks, vs
+
+    # -- the mega backend ---------------------------------------------------
+
+    _LAYER_FIELDS = ("ln1", "wqkv", "wo", "q_norm", "k_norm", "ln2", "mlp_gate", "mlp_up", "mlp_down")
+
+    def split_layer_params(self) -> list[dict]:
+        """Per-layer parameter dicts for the mega step. Each entry is a VIEW
+        of the stacked tensor (a leading-index slice of a contiguous tensor
+        is contiguous), so the kernels read the stacked weights in place and
+        no second copy exists; the JAX package materialises a per-layer copy
+        here, because a Pallas call cannot take a slice lazily."""
+        if self.config.is_moe:
+            raise NotImplementedError(NEXT_SLICE)
+        p = self.params
+        return [{f: getattr(p, f)[i] for f in self._LAYER_FIELDS} for i in range(self.config.num_layers)]
+
+    def mega_step_fn(self):
+        """The whole decode step as one recorded task graph
+        (``ModelBuilder.build_step_fn``, scoreboard policy); its ``plan``
+        lists the lowerings. A MoE config raises (the next slice)."""
+        return ModelBuilder(self.config).build_step_fn(self.config.num_layers)
+
+    @torch.no_grad()
+    def decode_mega(self, step_fn, mega_layers: list, token, ks, vs, lengths):
+        """One mega decode step (JAX ``decode_shard_mega``): embed, the step
+        function over ``mega_layers`` (``split_layer_params``), then the
+        fused final norm and lm_head. Returns (logits (B, V) fp32, ks, vs);
+        the caches are updated in place."""
+        x = self.params.embed[self._tokens(token)]
+        x, ks, vs = step_fn(mega_layers, x, ks, vs, lengths)
+        logits = fused_norm_head(x, self.params.final_norm, self.params.lm_head, eps=self.config.rms_eps)
+        return logits, ks, vs
 
 
 class Qwen3MoE(DenseLLM):

@@ -8,7 +8,9 @@ step from a Python loop (CUDA graphs are later work). The model is a
 ``DenseLLM`` or a ``Qwen3MoE``; the engine does not look at its MLP. The
 backends ``xla``, ``dist`` and ``dist_ar`` are ported (at world 1 the
 dense layers compute the same in each; the MoE layers' ``xla`` mode uses
-plain grouped GEMMs), ``mega`` is not. Caches are updated in place.
+plain grouped GEMMs), and ``mega`` for the dense model: prefill in
+``dist_ar`` mode, every decode step one recorded task graph lowered to
+the fused decode kernels (``megakernel/``). Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ from triton_dist_tpu_torch.models.dense import DenseLLM
 from triton_dist_tpu_torch.models.kv_cache import KVCache
 
 _BACKENDS = ("xla", "dist", "dist_ar", "mega")
-PREFILL_MODE = {"xla": "xla", "dist": "dist", "dist_ar": "dist_ar"}
-DECODE_MODE = {"xla": "xla", "dist": "dist_ar", "dist_ar": "dist_ar"}
+# Every backend resolves in both maps. mega prefills op by op in dist_ar
+# mode (its task graph is decode-shaped: one token per slot per step) and
+# decodes fused.
+PREFILL_MODE = {"xla": "xla", "dist": "dist", "dist_ar": "dist_ar", "mega": "dist_ar"}
+DECODE_MODE = {"xla": "xla", "dist": "dist_ar", "dist_ar": "dist_ar", "mega": "mega"}
 
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
@@ -54,8 +59,6 @@ class Engine:
 
     def __init__(self, model: DenseLLM, backend: str = "dist", max_len: int = 512,
                  sample: str = "greedy", temperature: float = 1.0, top_p: float = 1.0):
-        if backend == "mega":
-            raise NotImplementedError("the mega backend is not ported yet (ROADMAP queue 1 item M)")
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of {_BACKENDS}")
         self.model = model
@@ -67,6 +70,10 @@ class Engine:
         self.prefill_mode = PREFILL_MODE[backend]
         self.decode_mode = DECODE_MODE[backend]
         self.kv_cache: KVCache | None = None
+        if backend == "mega":
+            # Built once: the step function and the per-layer weight views.
+            self._mega_step = model.mega_step_fn()
+            self._mega_layers = model.split_layer_params()
 
     @property
     def device(self) -> torch.device:
@@ -76,7 +83,11 @@ class Engine:
         return sample_token(logits, generator, self.sample_method, self.temperature, self.top_p)
 
     def _decode(self, token, cache: KVCache, lengths):
-        logits, _, _ = self.model.decode(token, cache.k, cache.v, lengths, mode=self.decode_mode)
+        if self.decode_mode == "mega":
+            logits, _, _ = self.model.decode_mega(self._mega_step, self._mega_layers, token,
+                                                  cache.k, cache.v, lengths)
+        else:
+            logits, _, _ = self.model.decode(token, cache.k, cache.v, lengths, mode=self.decode_mode)
         return logits
 
     # ------------------------------------------------------------------ kv
