@@ -16,17 +16,23 @@ then, on the card:
    the grouped SwiGLU, the cuBLAS products (and SDPA) of each mega decode
    kernel; the port calls none of them) and the card's bound for the same
    work;
-3. serves a small dense model, ``test-dense`` on the mega backend and the
-   ``test-moe`` MoE model (fp32) through ``Engine`` on CUDA and on the CPU
-   (plain versions) and requires equal greedy tokens and close logits;
+3. serves a small dense model, ``test-dense`` on the mega backend, the
+   ``test-moe`` MoE model on ``dist`` and ``mega``, and through the paged
+   pool ``test-moe`` and ``test-dense`` on ``mega`` and ``test-dense`` on
+   ``dist`` (fp32) through ``Engine`` on CUDA and on the CPU (plain
+   versions) and requires equal greedy tokens and close logits;
 4. serves Qwen3-8B at full width and depth (36 layers, bf16, random weights
    from a seeded generator): four requests joined into four slots with
    ``prefill_into_slot`` and decoded together with ``decode_steps``, plus one
    batch-2 ``serve``, with the kernels' launch counts read around exactly
    that run, first on the ``dist`` backend and then, on the same model and
-   requests, on ``mega``; then frees it and serves Qwen3-30B-A3B at full
-   width and depth (48 layers, 128 experts, top-8, bf16) with the same four
-   requests and a batch-8 ``serve``, its counts read around its own run;
+   requests, on ``mega``, then on ``mega`` through a paged KV pool
+   (``alloc_paged``, ``prefill_chunk`` in chunks of 256,
+   ``complete_paged_prefill``, ``decode_steps_paged``); then frees it and
+   serves Qwen3-30B-A3B at full width and depth (48 layers, 128 experts,
+   top-8, bf16) with the same four requests and a batch-8 ``serve`` on
+   ``dist``, and the four requests on ``mega`` through the pool, each run's
+   counts read around its own run;
 5. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 It exits nonzero and prints no result when CUDA is unavailable, when run
@@ -74,6 +80,12 @@ SWIGLU_CAPACITIES = (8, 104, 192)
 # one step before a full cache.
 MEGA_KERNELS = ("fused_ln_qkv_rope", "fused_attn_back", "fused_mlp_block", "fused_norm_head")
 MEGA_LENGTHS = (1, 777, 1500, MAX_LEN - 1)
+# The paged KV pool of this slice: rows per block, the prefill chunk, and
+# the capacities the routed-experts kernel is checked at (8 is what decode
+# at batch <= 8 gives Qwen3-30B-A3B).
+PAGED_BS = 16
+PAGED_CHUNK = 256
+MOE_CAPACITIES = (8, 16)
 
 
 def log(msg: str) -> None:
@@ -135,7 +147,8 @@ _GEMM_WORDS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
 _MEGA_FAMILIES = (("qkv_partial", "fused_ln_qkv_rope"), ("qkv_epilogue", "fused_ln_qkv_rope"),
                   ("attn_back", "fused_attn_back"), ("oproj_partial", "fused_attn_back"),
                   ("mlp_tile", "fused_mlp_block"), ("mlp_reduce", "fused_mlp_block"),
-                  ("norm_head", "fused_norm_head"))
+                  ("norm_head", "fused_norm_head"), ("paged_decode", "paged_flash_decode"),
+                  ("moe_tile", "fused_moe_block"), ("moe_reduce", "fused_moe_block"))
 
 
 def _family(kernel_name: str) -> str:
@@ -444,6 +457,146 @@ def check_mega_kernels(dev, flush_buf) -> dict[str, dict]:
     return entries
 
 
+def _shuffled_pool(gen, lengths, hq, hkv, d, dev):
+    """q, a shuffled block pool (``PAGED_BS`` rows a block, tables for
+    ``MAX_LEN`` rows) and its tables, each sequence owning distinct blocks,
+    NULL past its chain."""
+    import torch
+
+    b, bs, mb = len(lengths), PAGED_BS, MAX_LEN // PAGED_BS
+    nb = 1 + b * mb
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(SEED)) + 1
+    tables = perm.reshape(b, mb).to(torch.int32)
+    for i, n in enumerate(lengths):
+        tables[i, -(-n // bs):] = 0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    return (randn(b, hq, d), randn(nb, hkv, bs, d), randn(nb, hkv, bs, d), tables.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def check_paged_moe_kernels(dev, flush_buf) -> dict[str, dict]:
+    """Phase 2, this slice's kernels (bf16): the block-table walk at both
+    models' decode shapes (B = 4, bs = 16, a shuffled table, lengths
+    1/777/1500/2047, then 0/bs-1/bs/S) against its plain version and
+    bitwise against ``flash_decode`` on the gathered view; the routed-experts
+    kernel at Qwen3-30B-A3B's widths, C = 8 and 16, with empty experts."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.kernels.flash_decode import (
+        flash_decode,
+        gather_paged_kv,
+        paged_decode_cost,
+        paged_decode_reference,
+        paged_flash_decode,
+    )
+    from triton_dist_tpu_torch.kernels.mega_moe import fused_moe_block, moe_block_cost, moe_block_reference
+    from triton_dist_tpu_torch.models import PRESETS
+
+    cfg8b, cfg_moe = PRESETS["qwen3-8b"], PRESETS["qwen3-moe-30b-a3b"]
+    hq, d = cfg8b.num_q_heads, cfg8b.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    entries = {}
+    err_max = 0.0
+    for label, hkv in (("qwen3-8b", cfg8b.num_kv_heads), ("qwen3-moe-30b-a3b", cfg_moe.num_kv_heads)):
+        for lengths in (MEGA_LENGTHS, (0, PAGED_BS - 1, PAGED_BS, MAX_LEN)):
+            q, kp, vp, tables, lens = _shuffled_pool(gen, lengths, hq, hkv, d, dev)
+            got_o, got_lse = paged_flash_decode(q, kp, vp, tables, lens, return_lse=True)
+            want_o, want_lse = paged_decode_reference(q, kp, vp, tables, lens, return_lse=True)
+            kc, vc = gather_paged_kv(kp, tables), gather_paged_kv(vp, tables)
+            ref_o, ref_lse = flash_decode(q, kc, vc, lens, return_lse=True)
+            torch.cuda.synchronize()
+            err = close(got_o, want_o, BF16_ATOL, BF16_RTOL)
+            lse_err = close(got_lse, want_lse, LSE_ATOL, 0.0)
+            if not (torch.equal(got_o, ref_o) and torch.equal(got_lse, ref_lse)):
+                raise AssertionError(f"paged_flash_decode {label} lengths {lengths}: not bitwise equal to "
+                                     "flash_decode on the gathered view")
+            err_max = max(err_max, err)
+            log(f"paged_flash_decode {label} B={len(lengths)} bs={PAGED_BS} lengths {list(lengths)}: max|o err| "
+                f"{err:.3e}, max|lse err| {lse_err:.3e}; bitwise equal to flash_decode on the gathered view")
+            if lengths != MEGA_LENGTHS:
+                continue
+            mask = (torch.arange(MAX_LEN, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+            kernel_ms = time_ms(lambda: paged_flash_decode(q, kp, vp, tables, lens), flush_buf)
+            plain_ms = time_ms(lambda: paged_decode_reference(q, kp, vp, tables, lens), flush_buf, iters=5)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], gather_paged_kv(kp, tables), gather_paged_kv(vp, tables), attn_mask=mask,
+                enable_gqa=True), flush_buf)
+            flops, nbytes = paged_decode_cost(q, kp, tables, lens)
+            b_ms, b_by = bound_ms(flops, nbytes)
+            log(f"paged_flash_decode {label} B={len(lengths)} Hq={hq} Hkv={hkv} D={d} bf16: kernel_ms {kernel_ms}, "
+                f"plain_ms {plain_ms}, library_ms(gather_paged_kv + SDPA, two calls) {lib_ms}, bound_ms {b_ms} "
+                f"({b_by}; {nbytes} bytes)")
+            if label == "qwen3-8b":
+                entries["paged_flash_decode"] = dict(
+                    name="paged_flash_decode", route="cuda", source="triton_dist_tpu_torch/csrc/flash_decode.cu",
+                    replaces="triton_dist_tpu/kernels/flash_decode.py:205", ms=kernel_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    entries["paged_flash_decode"]["max_abs_err"] = err_max
+    del q, kp, vp, kc, vc
+
+    e, dm, f = cfg_moe.num_experts, cfg_moe.hidden_size, cfg_moe.moe_intermediate_size
+    def weight(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * shape[-2] ** -0.5).to(torch.bfloat16)
+
+    wg, wu, wd = weight(e, dm, f), weight(e, dm, f), weight(e, f, dm)
+    w_cat = torch.cat([wg, wu], dim=2)
+    err_max = 0.0
+    for c in MOE_CAPACITIES:
+        # Experts 1, 4, 7, ... are empty; the others hold 1..C tokens, zero rows after.
+        fill = torch.randint(1, c + 1, (e,), generator=torch.Generator().manual_seed(c))
+        fill[1::3] = 0
+        rows = (torch.arange(c)[None, :] < fill[:, None]).to(dev)
+        xe = (torch.randn((e, c, dm), generator=gen, device=dev) * rows[..., None]).to(torch.bfloat16)
+        got, want = fused_moe_block(xe, wg, wu, wd), moe_block_reference(xe, wg, wu, wd)
+        torch.cuda.synchronize()
+        err = close(got, want, BF16_ATOL, BF16_RTOL)
+        if got[1::3].any():
+            raise AssertionError("fused_moe_block: an empty expert gave a nonzero output")
+        err_max = max(err_max, err)
+
+        def library():
+            gu = torch.bmm(xe, w_cat)
+            return torch.bmm(F.silu(gu[..., :f]) * gu[..., f:], wd)
+
+        kernel_ms = time_ms(lambda: fused_moe_block(xe, wg, wu, wd), flush_buf)
+        plain_ms = time_ms(lambda: moe_block_reference(xe, wg, wu, wd), flush_buf, iters=5)
+        lib_ms = time_ms(library, flush_buf)
+        flops, nbytes = moe_block_cost(xe, wg)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        log(f"fused_moe_block E={e} C={c} d={dm} f={f} bf16 ({int((fill == 0).sum())} empty experts): max|err| "
+            f"{err:.3e}; kernel_ms {kernel_ms}, plain_ms {plain_ms}, library_ms(bmm x@[wg|wu], silu*mul, bmm h@wd) "
+            f"{lib_ms}, bound_ms {b_ms} ({b_by}; {nbytes} bytes); device ms by pass: "
+            f"{kernel_passes(lambda: fused_moe_block(xe, wg, wu, wd), flush_buf)}")
+        if c == MOE_CAPACITIES[0]:
+            entries["fused_moe_block"] = dict(
+                name="fused_moe_block", route="cuda", source="triton_dist_tpu_torch/csrc/mega_moe_block.cu",
+                replaces="triton_dist_tpu/megakernel/kernels.py:239", ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    # The panels one decode step gives it: 4 tokens, top-8 of a random
+    # router, dispatched at capacity_for(4, 8, 128); at most 32 experts live.
+    from triton_dist_tpu_torch.kernels.moe_utils import capacity_for, dispatch, make_routing_plan, topk_routing
+
+    x = torch.randn((4, dm), generator=gen, device=dev).to(torch.bfloat16)
+    idx, _ = topk_routing(x.float() @ torch.randn((dm, e), generator=gen, device=dev), cfg_moe.top_k)
+    xe = dispatch(x, make_routing_plan(idx, e, capacity_for(4, cfg_moe.top_k, e)))
+    got, want = fused_moe_block(xe, wg, wu, wd), moe_block_reference(xe, wg, wu, wd)
+    torch.cuda.synchronize()
+    err_max = max(err_max, close(got, want, BF16_ATOL, BF16_RTOL))
+    kernel_ms = time_ms(lambda: fused_moe_block(xe, wg, wu, wd), flush_buf)
+    flops, nbytes = moe_block_cost(xe, wg)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    log(f"fused_moe_block decode-routed panels (4 tokens, top-{cfg_moe.top_k}, C={xe.shape[1]}, "
+        f"{int(xe.ne(0).any(2).any(1).sum())} live experts): kernel_ms {kernel_ms}, bound_ms {b_ms} "
+        f"({b_by}; {nbytes} bytes)")
+    entries["fused_moe_block"]["max_abs_err"] = err_max
+    log(f"card after the paged and MoE kernels (clocks.sm, power.draw, temperature): {smi_sample()}")
+    return entries
+
+
 # ------------------------------------- 3. parity: CUDA vs CPU, small fp32
 
 def parity_fp32(dev) -> None:
@@ -538,8 +691,174 @@ def parity_fp32(dev) -> None:
     log(f"parity fp32 test-moe (L=2, d=64, E=8, top-2, f=48): prefill logits and KV max|err| "
         f"{max(errs):.3e} (tol {FP32_LOGITS_TOL}); serve tokens equal at batch 2 and 8 ({n_tokens} tokens)")
 
+    # test-moe on mega, contiguous: a serve and one more step's logits.
+    e_cpu, e_gpu = Engine(m_cpu, backend="mega", max_len=64), Engine(m_gpu, backend="mega", max_len=64)
+    tok_cpu, tok_gpu = e_cpu.serve(ids[:4], gen_len=8), e_gpu.serve(ids[:4], gen_len=8)
+    if not torch.equal(tok_gpu.cpu(), tok_cpu):
+        raise AssertionError(f"test-moe mega tokens differ:\ncuda {tok_gpu.tolist()}\ncpu  {tok_cpu.tolist()}")
+    lg_cpu = e_cpu._decode(tok_cpu[:, -1], e_cpu.kv_cache, e_cpu.kv_cache.lengths)
+    lg_gpu = e_gpu._decode(tok_gpu[:, -1], e_gpu.kv_cache, e_gpu.kv_cache.lengths)
+    err_logits = close(lg_gpu.cpu(), lg_cpu, FP32_LOGITS_TOL, FP32_LOGITS_TOL)
+    log(f"parity fp32 test-moe mega (contiguous): serve tokens equal ({tok_gpu.numel()} tokens), decode logits "
+        f"max|err| {err_logits:.3e}")
+
+    # The paged pool: test-moe and test-dense on mega, test-dense on dist;
+    # slot 1 free, staggered prompts, chunked prefill.
+    for preset, cls, backend in (("test-moe", Qwen3MoE, "mega"), ("test-dense", DenseLLM, "mega"),
+                                 ("test-dense", DenseLLM, "dist")):
+        cfg = PRESETS[preset]
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED + 6), "cpu")
+        prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=torch.Generator().manual_seed(SEED + n))
+                   for n in (21, 0, 9)]
+        prompts[1] = None
+        runs = []
+        for model in (cls(cfg, p_cpu, device="cpu"), cls(cfg, on_card(p_cpu), device=dev)):
+            engine = Engine(model, backend=backend, max_len=64)
+            paged, tokens, _, logits = paged_prefill(engine, prompts, 6, block_size=8, chunk=8)
+            out, _, paged, _ = engine.decode_steps_paged(paged, tokens, torch.tensor([6, 0, 4]), 6)
+            runs.append((out.cpu(), paged.lengths.cpu().tolist(), [lg.cpu() for lg in logits],
+                         paged.k[:, 1:].cpu()))
+        (o_cpu, n_cpu, lg_cpu, k_cpu), (o_gpu, n_gpu, lg_gpu, k_gpu) = runs
+        if not torch.equal(o_gpu, o_cpu) or not n_gpu == n_cpu == [21 + 6, 0, 9 + 4]:
+            raise AssertionError(f"{preset} {backend} paged decode differs:\ncuda {o_gpu.tolist()} {n_gpu}\n"
+                                 f"cpu  {o_cpu.tolist()} {n_cpu}")
+        err_logits = max(close(g, c, FP32_LOGITS_TOL, FP32_LOGITS_TOL) for g, c in zip(lg_gpu, lg_cpu))
+        err_kv = close(k_gpu, k_cpu, FP32_LOGITS_TOL, FP32_LOGITS_TOL)
+        log(f"parity fp32 {preset} {backend} paged (bs 8, prompts 21/-/9 in chunks of 8, 6 steps): prefill "
+            f"logits max|err| {err_logits:.3e}, pool max|err| {err_kv:.3e} (tol {FP32_LOGITS_TOL}); tokens "
+            f"equal, slot 1 free")
+
 
 # ----------------------------------------------- 4. full-width serving
+
+def paged_prefill(engine, prompts, steps: int, *, block_size: int, chunk: int):
+    """Join ``prompts`` ((1, P) id tensors; None leaves a slot free) into a
+    fresh pool of ``engine``: each slot's chain comes from a
+    ``BlockAllocator`` (room for ``steps`` more rows), its prompt goes
+    through ``prefill_chunk`` in chunks of ``min(chunk, P)`` (the last one
+    padded) and ``complete_paged_prefill``; the tables and lengths are set
+    on the handle. Returns (paged, first tokens (B,) int32, TTFT per slot in
+    ms (the host holds the first token), final-chunk logits per slot)."""
+    import torch
+
+    from triton_dist_tpu_torch.models import sample_token
+    from triton_dist_tpu_torch.models.kv_cache import BlockAllocator
+
+    b, dev = len(prompts), engine.device
+    mb = -(-engine.max_len // block_size)
+    paged = engine.alloc_paged(b, block_size=block_size, num_blocks=1 + b * mb)
+    alloc = BlockAllocator(paged.num_blocks)
+    tokens, ttft, last_logits = [0] * b, [], []
+    for slot, ids in enumerate(prompts):
+        if ids is None:
+            continue
+        t0 = time.perf_counter()
+        p = ids.shape[1]
+        row = torch.zeros(mb, dtype=torch.int32)
+        chain = alloc.alloc(-(-(p + steps) // block_size))
+        row[:len(chain)] = torch.tensor(chain, dtype=torch.int32)
+        kb, vb = engine.paged_kbuf_zeros(p)
+        c = min(chunk, p)
+        for off in range(0, p, c):
+            ids_c = torch.zeros((1, c), dtype=torch.long, device=dev)
+            take = ids[:, off:off + c]
+            ids_c[:, :take.shape[1]] = take
+            logits, kb, vb = engine.prefill_chunk(kb, vb, ids_c, off, p - 1 - off if off + c >= p else c - 1)
+        engine.complete_paged_prefill(paged, kb, vb, row, 0)
+        paged.tables[slot] = row.to(dev)
+        paged.lengths[slot] = p
+        tokens[slot] = int(sample_token(logits, None)[0])
+        ttft.append((time.perf_counter() - t0) * 1e3)
+        last_logits.append(logits)
+    return paged, torch.tensor(tokens, dtype=torch.int32, device=dev), ttft, last_logits
+
+
+def expected_paged_launches(cfg, chunks: int, steps: int) -> dict[str, int]:
+    """A paged mega run: one flash_attention per layer per prefill chunk
+    (and, for a MoE model, one group_gemm_swiglu: chunks route through
+    TP_MoE), and per decode step one fused_ln_qkv_rope, paged_flash_decode
+    and fused_moe_block / fused_mlp_block per layer, one fused_norm_head."""
+    layers = cfg.num_layers
+    want = {name: 0 for name in expected_launches(cfg, "mega", 0, 0)}
+    want.update(flash_attention=layers * chunks, fused_ln_qkv_rope=layers * steps,
+                paged_flash_decode=layers * steps, fused_norm_head=steps)
+    if cfg.is_moe:
+        want.update(group_gemm_swiglu=layers * chunks, fused_moe_block=layers * steps)
+    else:
+        want["fused_mlp_block"] = layers * steps
+    return want
+
+
+def serve_paged_full_width(model, preset: str, dev) -> tuple[dict[str, int], object]:
+    """The four requests of ``serve_full_width`` on ``Engine(model,
+    backend="mega")`` through a paged pool: chains from a
+    ``BlockAllocator``, each prompt through ``paged_kbuf_zeros``,
+    ``prefill_chunk`` (chunks of ``PAGED_CHUNK``) and
+    ``complete_paged_prefill``, then ``DECODE_STEPS`` steps of
+    ``decode_steps_paged``. The launch counts are read around exactly that
+    run and must equal ``expected_paged_launches``. Returns the counts and
+    the engine."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import Engine
+
+    cfg = model.config
+    tag = f"{preset} [mega, paged]"
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(model, backend="mega", max_len=MAX_LEN)
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=tgen, device=dev) for n in FLASH_PROMPTS]
+    # Warm-up (library handles, the new kernels' first launches), uncounted.
+    warm, tok, _, _ = paged_prefill(engine, [prompts[0][:, :32]], 2, block_size=PAGED_BS, chunk=PAGED_CHUNK)
+    engine.decode_steps_paged(warm, tok, torch.tensor([2]), 2)
+    del warm
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    paged, tokens0, ttft, _ = paged_prefill(engine, prompts, DECODE_STEPS, block_size=PAGED_BS,
+                                            chunk=PAGED_CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, last, paged, rem = engine.decode_steps_paged(paged, tokens0, torch.full((4,), DECODE_STEPS), DECODE_STEPS)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    launches = launch_counts()
+
+    chunks = sum(-(-n // min(PAGED_CHUNK, n)) for n in FLASH_PROMPTS)
+    want = expected_paged_launches(cfg, chunks, DECODE_STEPS)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches on the served path {launches}, expected {want}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{tag}: tokens outside the vocabulary: {out.tolist()}")
+    want_len = [n + DECODE_STEPS for n in FLASH_PROMPTS]
+    if paged.lengths.tolist() != want_len or rem.tolist() != [0] * 4:
+        raise AssertionError(f"{tag}: slot lengths {paged.lengths.tolist()} != {want_len}")
+    active = torch.ones(4, dtype=torch.bool, device=dev)
+    step_logits, _, _ = model.decode_mega_paged(engine._mega_paged_step, engine._mega_layers, last, paged.k,
+                                                paged.v, paged.tables, paged.lengths, active)
+    if not bool(torch.isfinite(step_logits).all()):
+        raise AssertionError(f"{tag}: non-finite logits at full width")
+    for n, t in zip(FLASH_PROMPTS, ttft):
+        log(f"{tag} request prompt={n} ({-(-n // min(PAGED_CHUNK, n))} chunks): TTFT {t:.2f} ms")
+    log(f"{tag} decode_steps_paged B=4 bs={PAGED_BS}, {DECODE_STEPS} steps: {decode_ms:.2f} ms/step "
+        f"({4 * 1e3 / decode_ms:.1f} tokens/s); pool {paged.num_blocks} blocks, "
+        f"{paged.bytes_per_block * paged.num_blocks / 2**30:.2f} GiB")
+    log(f"{tag} launches on the served path ({chunks} prefill chunks, {DECODE_STEPS} decode steps): {launches}")
+    log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first tokens "
+        f"{tokens0.tolist()}, decode row 0 {out[0, :8].tolist()}")
+    log(f"card after {tag} decode (clocks.sm, power.draw, temperature): {smi_sample()}")
+    wall, busy, families, n_kernels = profile_window(
+        lambda: engine.decode_steps_paged(paged, last, torch.full((4,), 4), 4))
+    if busy is None:
+        log(f"{tag} profile decode_steps_paged B=4: wall {wall / 4:.2f} ms/step, device time not measured "
+            "(the profiler recorded no CUDA kernels)")
+    else:
+        shares = ", ".join(f"{k} {v / 4:.3f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+        log(f"{tag} profile decode_steps_paged B=4: profiled wall {wall / 4:.2f} ms/step, device busy "
+            f"{busy / 4:.3f} ms/step ({100 * busy / wall:.1f} % of the profiled wall; the unprofiled run took "
+            f"{decode_ms:.2f} ms/step), {n_kernels / 4:.0f} kernels/step; by kernel family per step: {shares}")
+    return launches, engine
 
 def build_full_width(preset: str, model_cls, dev):
     """``preset`` at full width and depth with random bf16 weights from a
@@ -563,18 +882,22 @@ def build_full_width(preset: str, model_cls, dev):
 def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str, int]:
     """One launch per layer per prefill (flash_attention) and per decode
     step: flash_decode on ``dist``, the three fused layer kernels on
-    ``mega`` plus one ``fused_norm_head`` per step; for a MoE model one
-    group_gemm_swiglu per layer per prefill or decode step."""
+    ``mega`` (fused_moe_block in place of fused_mlp_block for a MoE model)
+    plus one ``fused_norm_head`` per step; for a MoE model one
+    group_gemm_swiglu per layer per prefill, and per decode step on
+    ``dist``."""
     layers = cfg.num_layers
     mega = backend == "mega"
     return {
         "flash_attention": layers * prefills,
         "flash_decode": 0 if mega else layers * steps,
-        "group_gemm_swiglu": layers * (prefills + steps) if cfg.is_moe else 0,
+        "paged_flash_decode": 0,
+        "group_gemm_swiglu": layers * (prefills + (0 if mega else steps)) if cfg.is_moe else 0,
         "fused_ln_qkv_rope": layers * steps if mega else 0,
         "fused_attn_back": layers * steps if mega else 0,
-        "fused_mlp_block": layers * steps if mega else 0,
+        "fused_mlp_block": layers * steps if mega and not cfg.is_moe else 0,
         "fused_norm_head": steps if mega else 0,
+        "fused_moe_block": layers * steps if mega and cfg.is_moe else 0,
     }
 
 
@@ -680,10 +1003,11 @@ def serve_full_width(model, preset: str, backend: str, dev, serve_rows: int, ser
     return launches
 
 
-def compare_first_step(model, dev) -> None:
+def compare_first_step(model, dev, paged_engine) -> None:
     """One decode step of the four served slots on ``mega`` and on ``dist``
-    from the same caches (bf16): printed, not gated, since the backends
-    round at different points."""
+    from the same caches (bf16), and on ``mega`` through the paged pool
+    (``paged_engine``, prefilled in chunks): printed, not gated, since the
+    paths round at different points."""
     import torch
 
     from triton_dist_tpu_torch.models import Engine
@@ -703,6 +1027,14 @@ def compare_first_step(model, dev) -> None:
     log(f"qwen3-8b first decode step, mega vs dist (bf16, B=4): max |logit diff| "
         f"{(lg_mega - lg_dist).abs().max().item()}, max |logit| {lg_dist.abs().max().item()}, "
         f"greedy tokens equal {sum(same)}/{len(same)}")
+    paged, _, _, _ = paged_prefill(paged_engine, prompts, 1, block_size=PAGED_BS, chunk=PAGED_CHUNK)
+    active = torch.ones(len(prompts), dtype=torch.bool, device=dev)
+    lg_paged, _, _ = model.decode_mega_paged(paged_engine._mega_paged_step, paged_engine._mega_layers, tokens,
+                                             paged.k, paged.v, paged.tables, paged.lengths, active)
+    same = (lg_paged.argmax(-1) == lg_mega.argmax(-1)).tolist()
+    log(f"qwen3-8b first decode step, mega paged (chunked prefill) vs mega contiguous (bf16, B=4, same first "
+        f"tokens): max |logit diff| {(lg_paged - lg_mega).abs().max().item()}, greedy tokens equal "
+        f"{sum(same)}/{len(same)}")
 
 
 def moe_layer_breakdown(model, dev, tokens: int, mode: str) -> None:
@@ -784,30 +1116,44 @@ def main() -> int:
             f"spill stores {spills} bytes in all")
 
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    t_phase = time.perf_counter()
     entries = check_kernels(dev, flush_buf)
     entries.update(check_mega_kernels(dev, flush_buf))
+    entries.update(check_paged_moe_kernels(dev, flush_buf))
     del flush_buf
+    log(f"phase 2 (kernels vs plain, timed): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     parity_fp32(dev)
+    log(f"phase 3 (fp32 parity, CUDA vs CPU): {time.perf_counter() - t_phase:.1f} s")
 
-    # Qwen3-8B on the default backend and on mega: one model object, the
-    # same requests; each run's counts are read around that run alone.
+    # Qwen3-8B on the default backend, on mega and on mega through the pool:
+    # one model object, the same requests; each run's counts are read around
+    # that run alone.
+    t_phase = time.perf_counter()
     model = build_full_width("qwen3-8b", DenseLLM, dev)
     runs = [serve_full_width(model, "qwen3-8b", "dist", dev, serve_rows=2, serve_prompt=128, serve_gen=16)]
     runs.append(serve_full_width(model, "qwen3-8b", "mega", dev, serve_rows=2, serve_prompt=128, serve_gen=16,
                                  profile_prefill=False))
-    compare_first_step(model, dev)
-    del model
+    paged_launches, paged_engine = serve_paged_full_width(model, "qwen3-8b", dev)
+    runs.append(paged_launches)
+    compare_first_step(model, dev, paged_engine)
+    del model, paged_engine
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"qwen3-8b freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    log(f"qwen3-8b freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated; phase 4 qwen3-8b "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     model = build_full_width("qwen3-moe-30b-a3b", Qwen3MoE, dev)
     runs.append(serve_full_width(model, "qwen3-moe-30b-a3b", "dist", dev, serve_rows=8, serve_prompt=64,
                                  serve_gen=8))
+    runs.append(serve_paged_full_width(model, "qwen3-moe-30b-a3b", dev)[0])
     del model
+    log(f"phase 4 qwen3-moe-30b-a3b: {time.perf_counter() - t_phase:.1f} s")
 
     # --------------------------------------------------------- 5. results
     kernels = []
-    for name in ("flash_attention", "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS):
+    for name in ("flash_attention", "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS, "paged_flash_decode",
+                 "fused_moe_block"):
         e = dict(entries[name])
         e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -21,8 +21,13 @@ from triton_dist_tpu_torch.kernels import (
     flash_decode,
     group_gemm_swiglu,
     group_swiglu_reference,
+    paged_decode_reference,
+    paged_flash_decode,
 )
 from triton_dist_tpu_torch.kernels import mega_decode as mk
+from triton_dist_tpu_torch.kernels.flash_decode import gather_paged_kv
+from triton_dist_tpu_torch.kernels.mega_moe import fused_moe_block, moe_block_reference
+from triton_dist_tpu_torch.models.kv_cache import NULL_BLOCK
 from triton_dist_tpu_torch.models import PRESETS, DenseLLM, DenseParams, Engine, Qwen3MoE, init_params
 
 pytestmark = pytest.mark.cuda
@@ -330,3 +335,114 @@ def test_mega_engine_on_cuda_matches_cpu(cuda):
         outs.append((out.cpu(), cache.lengths.cpu()))
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
     assert outs[1][1].tolist() == outs[0][1].tolist() == [8 + 5, 0, 5 + 3]
+
+
+# ------------------------------------- the paged walk and the routed experts
+
+def _paged_case(gen, dtype, device, hkv, bs=16, mb=128, hq=32, d=128):
+    """A shuffled pool: lengths 0, 1, bs - 1, bs, S = mb·bs and two ragged
+    ones; each sequence owns distinct blocks, NULL past its chain."""
+    lengths = torch.tensor([0, 1, bs - 1, bs, mb * bs, 777, 1500], dtype=torch.int32)
+    b = lengths.numel()
+    nb = 1 + b * mb
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(hkv)) + 1
+    tables = perm.reshape(b, mb).to(torch.int32)
+    for i, n in enumerate(lengths.tolist()):
+        tables[i, -(-n // bs):] = NULL_BLOCK
+    q = _randn(gen, (b, hq, d), dtype, device)
+    kp, vp = _randn(gen, (nb, hkv, bs, d), dtype, device), _randn(gen, (nb, hkv, bs, d), dtype, device)
+    return q, kp, vp, tables.to(device), lengths.to(device)
+
+
+@pytest.mark.parametrize("hkv", [4, 8])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_paged_flash_decode_kernel_vs_plain(cuda, dtype, hkv):
+    """The table walk against its plain version, and bitwise against the
+    padded-cache kernel on the gathered view (the same sweep, partition and
+    order); a sequence with no key gives o = 0, lse = -1e30."""
+    gen = torch.Generator(device=cuda).manual_seed(hkv)
+    q, kp, vp, tables, lengths = _paged_case(gen, dtype, cuda, hkv)
+    o, lse = _counted(paged_flash_decode, q, kp, vp, tables, lengths, return_lse=True)
+    want_o, want_lse = paged_decode_reference(q, kp, vp, tables, lengths, return_lse=True)
+    _assert_close(o, want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    assert not o[0].any() and (lse[0] == -1e30).all()
+    ref_o, ref_lse = flash_decode(q, gather_paged_kv(kp, tables), gather_paged_kv(vp, tables), lengths,
+                                  return_lse=True)
+    assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)
+
+
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("size", ["test", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_fused_moe_block_kernel_vs_plain(cuda, dtype, size, c):
+    """Capacity-padded panels with empty experts and zero padding rows."""
+    e, d, ff = (8, 64, 48) if size == "test" else (128, 2048, 768)
+    gen = torch.Generator(device=cuda).manual_seed(c + d)
+    xe = _randn(gen, (e, c, d), dtype, cuda)
+    fill = torch.randint(0, c + 1, (e,), generator=torch.Generator().manual_seed(c)).to(cuda)
+    fill[1::3] = 0  # empty experts
+    xe *= (torch.arange(c, device=cuda)[None, :] < fill[:, None])[..., None].to(dtype)
+    # Each expert's weights scaled by its fan-in, as the model's are.
+    wg, wu, wd = ((torch.randn(shape, generator=gen, device=cuda) * shape[1] ** -0.5).to(dtype)
+                  for shape in ((e, d, ff), (e, d, ff), (e, ff, d)))
+    got = _counted(fused_moe_block, xe, wg, wu, wd)
+    assert got.dtype == torch.float32 and got.shape == (e, c, d)
+    _assert_close(got, moe_block_reference(xe, wg, wu, wd), dtype)
+    assert not got[1::3].any()
+
+
+def test_paged_and_moe_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(2, 8, 32, device=cuda)
+    pool = torch.zeros(5, 4, 16, 32, device=cuda)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        paged_flash_decode(q, pool, pool, tables.long(), lengths)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        paged_flash_decode(q.half(), pool.half(), pool.half(), tables, lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_flash_decode(q, pool, pool, tables.t().contiguous().t(), lengths)
+    with pytest.raises(ValueError, match="one device"):
+        paged_flash_decode(q, pool, pool, tables.cpu(), lengths)
+    xe = torch.zeros(8, 8, 64, device=cuda)
+    w = torch.zeros(8, 64, 48, device=cuda)
+    wd = torch.zeros(8, 48, 64, device=cuda)
+    with pytest.raises(ValueError, match="share a dtype"):
+        fused_moe_block(xe, w, w, wd.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_moe_block(xe, w, w, wd.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="bad shapes"):
+        fused_moe_block(xe, w, w, wd[:, :40])
+
+
+@pytest.mark.parametrize("preset", ["test-dense", "test-moe"])
+def test_paged_mega_engine_on_cuda_matches_cpu(cuda, preset):
+    """The paged mega step (pool write, table walk, the routed experts for
+    test-moe) on the card gives the CPU plain path's tokens, slot 1 free."""
+    cfg = PRESETS[preset]
+    cls = Qwen3MoE if cfg.is_moe else DenseLLM
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    p_gpu = DenseParams(**{k: None if t is None else t.to(cuda) for k, t in vars(p_cpu).items()})
+    outs = []
+    for model in (cls(cfg, p_cpu, device="cpu"), cls(cfg, p_gpu, device=cuda)):
+        engine = Engine(model, backend="mega", max_len=32)
+        paged = engine.alloc_paged(3, block_size=8, num_blocks=16)
+        tokens = []
+        for slot, (ids, chain) in enumerate((([3, 17, 42, 7, 99, 5, 23, 11, 2], [5, 2]), ([], []),
+                                             ([8, 1, 6, 4], [9, 3]))):
+            if not ids:
+                tokens.append(0)
+                continue
+            kb, vb = engine.paged_kbuf_zeros(len(ids))
+            logits, kb, vb = engine.prefill_chunk(kb, vb, torch.tensor([ids]), 0, len(ids) - 1)
+            row = torch.zeros(paged.max_blocks, dtype=torch.int32)
+            row[:len(chain)] = torch.tensor(chain)
+            engine.complete_paged_prefill(paged, kb, vb, row, 0)
+            paged.tables[slot] = row
+            paged.lengths[slot] = len(ids)
+            tokens.append(int(logits.argmax()))
+        out, _, paged, _ = engine.decode_steps_paged(paged, torch.tensor(tokens), torch.tensor([6, 0, 4]), 6)
+        outs.append((out.cpu(), paged.lengths.cpu().tolist()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
+    assert outs[1][1] == outs[0][1] == [9 + 6, 0, 4 + 4]

@@ -1,7 +1,9 @@
 """The port's mega decode backend held against the JAX package at
-tensor-parallel world 1: the four fused kernels' plain versions (what a CPU
+tensor-parallel world 1: the fused kernels' plain versions (what a CPU
 tensor runs) against the JAX functions, the task graph's plans, and
-``Engine(backend="mega")`` on the ``test-dense`` preset (fp32).
+``Engine(backend="mega")`` on the ``test-dense`` and ``test-moe`` presets
+(fp32). The paged step, and ``Qwen3MoE`` served on mega, are held in
+``test_torch_paged.py`` (one JAX engine per preset serves both).
 
 The JAX side runs on a 1-device CPU mesh, its Pallas kernels in interpret
 mode; the port runs with ``device="cpu"``. Inputs come from numpy seeds,
@@ -24,7 +26,7 @@ from triton_dist_tpu.megakernel import kernels as jmk
 from triton_dist_tpu.models import PRESETS as JPRESETS
 from triton_dist_tpu.models import DenseLLM as JDenseLLM
 from triton_dist_tpu.models import Engine as JEngine
-from triton_dist_tpu_torch.kernels import decode_reference
+from triton_dist_tpu_torch.kernels import decode_reference, paged_flash_decode
 from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
 from triton_dist_tpu_torch.megakernel import ModelBuilder, kernels as mk
 from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, Qwen3MoE, init_params, params_from_numpy
@@ -36,6 +38,7 @@ JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 IDS = [[3, 17, 42, 7, 99, 5, 23, 11]]
 CFG = PRESETS["test-dense"]  # d 64, ff 128, GQA 8/4, hd 32
+MOE = PRESETS["test-moe"]  # the same attention; 8 experts, top-2, ff 48
 S = 128
 
 
@@ -148,6 +151,39 @@ def test_norm_head_vs_jax(dt):
     _close(got, want, dt)
 
 
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_moe_block_vs_jax(dt):
+    """The routed-experts panels at test-moe sizes, capacity 8: expert 0
+    holds three tokens, expert 5 one, the rest none (zero rows, as the
+    dispatch pads them); the padded rows give zeros."""
+    rng = np.random.default_rng(6)
+    e, cap, d, ff = MOE.num_experts, 8, MOE.hidden_size, MOE.moe_intermediate_size
+    xe = np.zeros((e, cap, d), np.float32)
+    xe[0, :3] = rng.standard_normal((3, d))
+    xe[5, :1] = rng.standard_normal((1, d))
+    args = [xe, *(rng.standard_normal(s) * s[-2] ** -0.5 for s in ((e, d, ff), (e, d, ff), (e, ff, d)))]
+    ja, ta = zip(*(_pair(a.astype(np.float32), dt) for a in args))
+    want = jmk.fused_moe_block(*ja)
+    got = mk.fused_moe_block(*ta)
+    assert got.dtype == torch.float32 and got.shape == (e, cap, d)
+    _close(got, want, dt)
+    assert not got[1:5].any() and not got[0, 3:].any() and got[0, :3].abs().sum() > 0
+
+
+def test_moe_block_cost_counts_live_experts():
+    """The routed-experts bound counts the weights of the experts that hold
+    a token, and 6·d·ff FLOPs per nonzero row: an all-zero panel gives
+    y = 0 without its expert's weights."""
+    from triton_dist_tpu_torch.kernels.mega_moe import moe_block_cost
+
+    e, cap, d, ff = MOE.num_experts, 8, MOE.hidden_size, MOE.moe_intermediate_size
+    xe = torch.zeros((e, cap, d), dtype=torch.bfloat16)
+    xe[0, :3], xe[5, :1] = 1.0, -2.0
+    flops, nbytes = moe_block_cost(xe, torch.empty((e, d, ff), dtype=torch.bfloat16))
+    assert flops == 6 * 4 * d * ff
+    assert nbytes == 2 * (e * cap * d + 3 * 2 * d * ff) + 4 * e * cap * d
+
+
 @pytest.mark.parametrize("policy", ["static", "cost", "scoreboard"])
 def test_step_plan_equals_jax(policy):
     want = JModelBuilder(JPRESETS["test-dense"], world=1, schedule_policy=policy).build_step_fn(2).plan
@@ -157,6 +193,16 @@ def test_step_plan_equals_jax(policy):
     assert mb.graph.stats["policy"] == policy
     if policy == "scoreboard":  # layer 0's cache scatter waits behind layer 1's front
         assert got.index("cache_update@0→standalone_cache_update") > got.index("attn_front@1→fused_attn_front")
+
+
+@pytest.mark.parametrize("policy", ["static", "cost", "scoreboard"])
+def test_moe_step_plan_equals_jax(policy):
+    """test-moe: under every policy each layer's moe task lowers to the
+    routed-experts kernel, as in JAX."""
+    want = JModelBuilder(JPRESETS["test-moe"], world=1, schedule_policy=policy).build_step_fn(2).plan
+    got = ModelBuilder(MOE, schedule_policy=policy).build_step_fn(2).plan
+    assert got == want
+    assert "moe_block@0→fused_moe_ex" in got and "moe_block@1→fused_moe_ex" in got
 
 
 def _random_layer(rng):
@@ -196,6 +242,48 @@ def test_pinned_flash_decode_lowers_standalone():
     torch.testing.assert_close(k_f, k_p, rtol=0, atol=0)
     torch.testing.assert_close(v_f, v_p, rtol=0, atol=0)
     assert not torch.equal(k_f, ks)  # the new rows were written
+
+
+def _moe_layer(rng):
+    d, hq, hkv, hd = MOE.hidden_size, MOE.num_q_heads, MOE.num_kv_heads, MOE.head_dim
+    e, ff = MOE.num_experts, MOE.moe_intermediate_size
+    shapes = {"ln1": (d,), "wqkv": (d, (hq + 2 * hkv) * hd), "q_norm": (hd,), "k_norm": (hd,),
+              "wo": (hq * hd, d), "ln2": (d,), "router": (d, e), "mlp_gate": (e, d, ff),
+              "mlp_up": (e, d, ff), "mlp_down": (e, ff, d)}
+    lp = {k: (rng.standard_normal(s) * 0.1).astype(np.float32) for k, s in shapes.items()}
+    for k in ("ln1", "q_norm", "k_norm", "ln2"):
+        lp[k] += 1.0
+    return {k: torch.from_numpy(v) for k, v in lp.items()}
+
+
+def test_pinned_moe_lowers_standalone():
+    """The moe task lowers through the routed-experts kernel;
+    pin_standalone("moe") falls back to TP_MoE in both packages, with the
+    same layer result."""
+    def pinned(builder):
+        builder.make_attn_front()
+        builder.make_attn_back()
+        builder.make_moe_block()
+        builder.graph.pin_standalone("moe")
+        return builder.build_layer_fn()
+
+    fused = ModelBuilder(MOE).build_layer_fn()
+    assert "moe_block→fused_moe_ex" in fused.plan
+    assert fused.plan == JModelBuilder(JPRESETS["test-moe"], world=1).build_layer_fn().plan
+    pin = pinned(ModelBuilder(MOE))
+    assert pin.plan == pinned(JModelBuilder(JPRESETS["test-moe"], world=1)).plan
+    assert "moe→standalone_moe" in pin.plan
+
+    rng = np.random.default_rng(11)
+    lp = _moe_layer(rng)
+    b, s, hkv, hd = 2, 16, MOE.num_kv_heads, MOE.head_dim
+    x = torch.from_numpy((rng.standard_normal((b, MOE.hidden_size)) * 0.5).astype(np.float32))
+    ks, vs = torch.zeros((1, b, hkv, s, hd)), torch.zeros((1, b, hkv, s, hd))
+    lengths = torch.tensor([3, 7], dtype=torch.int32)
+    x_f, k_f, v_f = fused(lp, x, ks.clone(), vs.clone(), 0, lengths)
+    x_p, k_p, v_p = pin(lp, x, ks.clone(), vs.clone(), 0, lengths)
+    torch.testing.assert_close(x_f, x_p, rtol=1e-5, atol=1e-6)
+    assert torch.equal(k_f, k_p) and torch.equal(v_f, v_p)
 
 
 @pytest.fixture(scope="module")
@@ -255,16 +343,21 @@ def test_mega_slot_decode_equals_jax(models):
 
 
 def test_unported_mega_paths_raise():
-    """The MoE block and the paged step are the next slice: they raise
-    rather than fall back to another backend."""
-    moe = PRESETS["test-moe"]
-    model = Qwen3MoE(moe, init_params(moe, torch.Generator().manual_seed(0), "cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Engine(model, backend="mega")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ModelBuilder(moe)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ModelBuilder(CFG, paged=True)
-    for fn in (mk.fused_moe_block, mk.fused_paged_attn_back):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            fn()
+    """What the port still leaves out raises, naming its ROADMAP item,
+    rather than falling back to another path: quantized pools and their
+    walk (item E), prefix seeding (item A), the speculative verify step
+    (item C)."""
+    model = Qwen3MoE(MOE, init_params(MOE, torch.Generator().manual_seed(0), "cpu"), device="cpu")
+    engine = Engine(model, backend="mega", max_len=32)
+    with pytest.raises(NotImplementedError, match="item E"):
+        engine.alloc_paged(2, block_size=8, num_blocks=8, quant="int8")
+    paged = engine.alloc_paged(2, block_size=8, num_blocks=8)
+    q = torch.zeros(2, MOE.num_q_heads, MOE.head_dim)
+    with pytest.raises(NotImplementedError, match="item E"):
+        paged_flash_decode(q, paged.k[0], paged.v[0], paged.tables, paged.lengths, k_scale=paged.k[0])
+    with pytest.raises(NotImplementedError, match="item A"):
+        engine.paged_seed_kbuf(paged, paged.tables[0], 8, 12)
+    with pytest.raises(NotImplementedError, match="item C"):
+        ModelBuilder(MOE).build_verify_fn(MOE.num_layers, 4)
+    with pytest.raises(NotImplementedError, match="item C"):
+        engine.spec_decode_steps_paged(paged, None, paged.lengths, paged.lengths, 2, 4)

@@ -7,10 +7,12 @@ counterpart is found under the same path.
 
 It serves the Qwen3-class models at tensor-parallel world 1:
 ``models.Engine`` over ``models.DenseLLM`` or ``models.Qwen3MoE``, with
-hand-written CUDA kernels for flash attention (prefill), flash decode and
-the MoE layers' grouped gate/up GEMM with its SwiGLU. For the dense model
-``Engine(backend="mega")`` decodes through ``megakernel``: every step is
-one recorded task graph lowered to four fused decode kernels.
+hand-written CUDA kernels for flash attention (prefill), flash decode (over
+a padded cache or a paged block pool) and the MoE layers' grouped gate/up
+GEMM with its SwiGLU. ``Engine(backend="mega")`` decodes through
+``megakernel``: every step is one recorded task graph lowered to fused
+decode kernels (the routed experts among them), over the slot cache or
+directly over a paged KV pool (``models.PagedKVCache``).
 """
 
 from triton_dist_tpu_torch.runtime.platform import resolve_device  # noqa: F401

@@ -1,11 +1,14 @@
-"""One-token GQA flash decode over a padded KV cache.
+"""One-token GQA flash decode over a padded KV cache or a paged block pool.
 
-Counterpart of ``triton_dist_tpu/kernels/flash_decode.py`` (``flash_decode``
-and the TPU kernel ``_decode_kernel``). On a CUDA tensor ``flash_decode``
-launches the hand-written kernel in ``csrc/flash_decode.cu`` (its header
-says what bounds it on the H100 and how its design answers that); on a CPU
-tensor it runs ``decode_reference``, the plain PyTorch version of the same
-function, and nothing else.
+Counterpart of ``triton_dist_tpu/kernels/flash_decode.py``: ``flash_decode``
+(the TPU kernel ``_decode_kernel``), ``paged_flash_decode`` (its block-table
+walk ``_paged_decode_kernel``) and ``gather_paged_kv``. On a CUDA tensor
+each wrapper launches its hand-written kernel in ``csrc/flash_decode.cu``
+(one sweep, templated on how it finds a key; the header says what bounds it
+on the H100 and how its design answers that); on a CPU tensor it runs its
+plain PyTorch version (``decode_reference``, ``paged_decode_reference``),
+and nothing else. The quantized pool walk (``_paged_decode_quant_kernel``)
+is not ported: ``k_scale``/``v_scale`` raise.
 """
 
 from __future__ import annotations
@@ -17,13 +20,21 @@ import torch
 from triton_dist_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
+#: The pool block that is never allocated: a table's tail past a slot's
+#: blocks points here, and masked or inactive writes land here. Its rows are
+#: never read as data.
+NULL_BLOCK = 0
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 SUPPORTED_GROUPS = (1, 2, 4, 8)
 
 _SIGNATURES = {
     "tdt_flash_decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "tdt_paged_flash_decode": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
+#: What a quantized pool walk waits for.
+QUANT_WALK = "the quantized pool walk (_paged_decode_quant_kernel) is ROADMAP queue 1 item E"
 
 
 def decode_reference(
@@ -114,6 +125,88 @@ def flash_decode(
 flash_decode.launches = 0
 
 
+def gather_paged_kv(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """The contiguous (..., B, Hkv, max_blocks·bs, D) copy of a (...,
+    num_blocks, Hkv, bs, D) pool (leading dims such as layers kept) along
+    (B, max_blocks) block tables: a plain gather (unmapped entries point at
+    the NULL block and sit past the lengths)."""
+    b, mb = tables.shape
+    *lead, _, hkv, bs, d = pool.shape
+    g = pool[..., tables.reshape(-1).long(), :, :, :].reshape(*lead, b, mb, hkv, bs, d)
+    return g.transpose(-4, -3).reshape(*lead, b, hkv, mb * bs, d)
+
+
+def paged_decode_reference(q, k_pool, v_pool, tables, lengths, *, scale: float | None = None,
+                           return_lse: bool = False):
+    """Plain ``paged_flash_decode``: gather the pool along the tables, then
+    ``decode_reference`` (the JAX ``impl="gather"`` oracle)."""
+    return decode_reference(q, gather_paged_kv(k_pool, tables), gather_paged_kv(v_pool, tables),
+                            lengths, scale=scale, return_lse=return_lse)
+
+
+def paged_flash_decode(
+    q: torch.Tensor,  # (B, Hq, D) — one decode step
+    k_pool: torch.Tensor,  # (num_blocks, Hkv, bs, D) — the global block pool
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,  # (B, max_blocks) int32 physical block ids
+    lengths: torch.Tensor,  # (B,) int32 valid length per sequence
+    *,
+    scale: float | None = None,
+    return_lse: bool = False,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+):
+    """One-token GQA decode against a paged cache: key t of sequence b is
+    ``pool[tables[b, t // bs], :, t % bs]``; keys past ``max_blocks·bs``
+    are never read. Returns ``o`` (B, Hq, D), plus ``lse`` (B, Hq) fp32
+    when ``return_lse``. CUDA tensors (as ``flash_decode``, int32 tables)
+    launch the kernel; CPU tensors run ``paged_decode_reference``."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(QUANT_WALK)
+    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape or tables.dim() != 2:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}, tables {tuple(tables.shape)}")
+    b, hq, d = q.shape
+    _, hkv, bs, _ = k_pool.shape
+    mb = tables.shape[1]
+    if k_pool.shape[3] != d or hq % hkv or tables.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, pool {tuple(k_pool.shape)}, "
+                         f"tables {tuple(tables.shape)}, lengths {tuple(lengths.shape)}")
+    if not (q.device == k_pool.device == v_pool.device == tables.device == lengths.device):
+        raise ValueError("q, pools, tables and lengths must be on one device")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise ValueError("q and the pools must share a dtype")
+    if q.device.type == "cpu":
+        return paged_decode_reference(q, k_pool, v_pool, tables, lengths, scale=scale,
+                                      return_lse=return_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode runs on CUDA or CPU tensors, got {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"paged_flash_decode takes fp32 or bf16, got {q.dtype}")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(f"tables and lengths must be int32, got {tables.dtype}, {lengths.dtype}")
+    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, tables, lengths)):
+        raise ValueError("paged_flash_decode needs contiguous q, pools, tables and lengths")
+    if d not in SUPPORTED_HEAD_DIMS or hq // hkv not in SUPPORTED_GROUPS or mb > 16384:
+        raise ValueError(f"unsupported head dim {d}, group {hq // hkv} or {mb} table columns")
+    scale = d ** -0.5 if scale is None else scale
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq), device=q.device, dtype=torch.float32) if return_lse else None
+    lib = _build.load("flash_decode", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        code = lib.tdt_paged_flash_decode(
+            _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(tables),
+            _build.ptr(lengths), _build.ptr(o), _build.ptr(lse), b, hq, hkv, bs, mb, d,
+            ctypes.c_float(scale), 1 if q.dtype == torch.bfloat16 else 0, _build.stream_ptr(q.device),
+        )
+    _build.check(lib, code, "paged_flash_decode")
+    paged_flash_decode.launches += 1
+    return (o, lse) if return_lse else o
+
+
+paged_flash_decode.launches = 0
+
+
 def decode_bytes(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch.Tensor, *,
                  return_lse: bool = False) -> int:
     """Bytes the function must move for these inputs: each valid K and V row
@@ -131,3 +224,15 @@ def decode_flops(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch.Tensor) 
     b, hq, d = q.shape
     rows = int(torch.clamp(lengths.long(), 0, k_cache.shape[2]).sum())
     return 4 * d * hq * rows
+
+
+def paged_decode_cost(q: torch.Tensor, k_pool: torch.Tensor, tables: torch.Tensor,
+                      lengths: torch.Tensor) -> tuple[int, int]:
+    """(FLOPs, bytes) of ``paged_flash_decode`` for these inputs: as
+    ``flash_decode`` over the valid keys (capped at max_blocks·bs), plus the
+    block tables read once."""
+    b, hq, d = q.shape
+    hkv, bs = k_pool.shape[1], k_pool.shape[2]
+    rows = int(torch.clamp(lengths.long(), 0, tables.shape[1] * bs).sum())
+    nbytes = 2 * rows * hkv * d * k_pool.element_size() + 2 * q.numel() * q.element_size()
+    return 4 * d * hq * rows, nbytes + 4 * (lengths.numel() + tables.numel())

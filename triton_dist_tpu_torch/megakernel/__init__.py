@@ -6,9 +6,11 @@ Counterpart of ``triton_dist_tpu/megakernel/``. ``ModelBuilder``
 ``TaskGraph`` (``graph.py``), the scheduler groups them into the known
 fusable chains, and each group lowers to one fused kernel wrapper
 (``kernels.py``): ``fused_ln_qkv_rope`` (attention front),
-``fused_attn_back`` (the sweep with its o-projection) and
-``fused_mlp_block``; the model's head is ``fused_norm_head``. On the
-card each of those is a hand-written CUDA kernel.
+``fused_attn_back`` (the sweep with its o-projection; paged:
+``fused_paged_attn_back``, the pool write, the block-table walk and the
+o-projection), ``fused_mlp_block`` and, for a MoE model, the routed
+experts ``fused_moe_block`` between routing and combine; the model's head
+is ``fused_norm_head``. On the card each kernel is hand-written CUDA.
 """
 
 from triton_dist_tpu_torch.megakernel.builder import ModelBuilder
@@ -17,7 +19,9 @@ from triton_dist_tpu_torch.megakernel.kernels import (
     fused_attn_back,
     fused_ln_qkv_rope,
     fused_mlp_block,
+    fused_moe_block,
     fused_norm_head,
+    fused_paged_attn_back,
 )
 
 __all__ = [
@@ -27,5 +31,7 @@ __all__ = [
     "fused_attn_back",
     "fused_ln_qkv_rope",
     "fused_mlp_block",
+    "fused_moe_block",
     "fused_norm_head",
+    "fused_paged_attn_back",
 ]

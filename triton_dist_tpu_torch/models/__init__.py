@@ -1,7 +1,7 @@
 from triton_dist_tpu_torch.models.config import PRESETS, ModelConfig
 from triton_dist_tpu_torch.models.dense import DenseLLM, DenseParams, Qwen3MoE, init_params
 from triton_dist_tpu_torch.models.engine import Engine, sample_token
-from triton_dist_tpu_torch.models.kv_cache import KVCache
+from triton_dist_tpu_torch.models.kv_cache import KVCache, PagedKVCache
 from triton_dist_tpu_torch.models.weights import params_from_numpy
 
 __all__ = [
@@ -11,6 +11,7 @@ __all__ = [
     "Engine",
     "KVCache",
     "ModelConfig",
+    "PagedKVCache",
     "Qwen3MoE",
     "init_params",
     "params_from_numpy",

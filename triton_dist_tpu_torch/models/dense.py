@@ -2,8 +2,9 @@
 
 Counterpart of ``triton_dist_tpu/models/dense.py`` (``DenseParams``,
 ``init_params``, ``DenseLLM.prefill_shard`` / ``prefill_chunk_shard`` /
-``decode_shard``, ``decode_shard_mega``, ``split_layer_params``,
-``Qwen3MoE``; the paged and speculative mega steps are not ported).
+``decode_shard``, ``decode_shard_mega``, ``decode_shard_mega_paged``,
+``split_layer_params``, ``Qwen3MoE``; the speculative verify steps are not
+ported).
 Parameters are stacked over layers as in JAX; a Python loop over layers
 stands in for ``lax.scan``. The caches a step is given are updated in place.
 """
@@ -18,7 +19,7 @@ import torch
 from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
 from triton_dist_tpu_torch.layers.tp import TP_Attn, TP_MLP, TP_MoE, RMSNorm
 from triton_dist_tpu_torch.megakernel.builder import ModelBuilder
-from triton_dist_tpu_torch.megakernel.kernels import NEXT_SLICE, fused_norm_head
+from triton_dist_tpu_torch.megakernel.kernels import fused_norm_head
 from triton_dist_tpu_torch.models.config import ModelConfig, torch_dtype
 from triton_dist_tpu_torch.runtime.platform import resolve_device
 
@@ -216,21 +217,22 @@ class DenseLLM:
     _LAYER_FIELDS = ("ln1", "wqkv", "wo", "q_norm", "k_norm", "ln2", "mlp_gate", "mlp_up", "mlp_down")
 
     def split_layer_params(self) -> list[dict]:
-        """Per-layer parameter dicts for the mega step. Each entry is a VIEW
-        of the stacked tensor (a leading-index slice of a contiguous tensor
-        is contiguous), so the kernels read the stacked weights in place and
-        no second copy exists; the JAX package materialises a per-layer copy
-        here, because a Pallas call cannot take a slice lazily."""
-        if self.config.is_moe:
-            raise NotImplementedError(NEXT_SLICE)
+        """Per-layer parameter dicts for the mega step (with ``router`` for a
+        MoE config). Each entry is a VIEW of the stacked tensor (a
+        leading-index slice of a contiguous tensor is contiguous), so the
+        kernels read the stacked weights in place and no second copy exists;
+        the JAX package materialises a per-layer copy here, because a Pallas
+        call cannot take a slice lazily."""
         p = self.params
-        return [{f: getattr(p, f)[i] for f in self._LAYER_FIELDS} for i in range(self.config.num_layers)]
+        fields = self._LAYER_FIELDS + (("router",) if self.config.is_moe else ())
+        return [{f: getattr(p, f)[i] for f in fields} for i in range(self.config.num_layers)]
 
-    def mega_step_fn(self):
+    def mega_step_fn(self, *, paged: bool = False):
         """The whole decode step as one recorded task graph
-        (``ModelBuilder.build_step_fn``, scoreboard policy); its ``plan``
-        lists the lowerings. A MoE config raises (the next slice)."""
-        return ModelBuilder(self.config).build_step_fn(self.config.num_layers)
+        (``ModelBuilder.build_step_fn``, scoreboard policy), over the
+        contiguous caches or, with ``paged``, the block pools; its ``plan``
+        lists the lowerings."""
+        return ModelBuilder(self.config, paged=paged).build_step_fn(self.config.num_layers)
 
     @torch.no_grad()
     def decode_mega(self, step_fn, mega_layers: list, token, ks, vs, lengths):
@@ -242,6 +244,21 @@ class DenseLLM:
         x, ks, vs = step_fn(mega_layers, x, ks, vs, lengths)
         logits = fused_norm_head(x, self.params.final_norm, self.params.lm_head, eps=self.config.rms_eps)
         return logits, ks, vs
+
+    @torch.no_grad()
+    def decode_mega_paged(self, step_fn, mega_layers: list, token, pk, pv, tables, lengths, active):
+        """One paged mega decode step (JAX ``decode_shard_mega_paged``): the
+        ``mega_step_fn(paged=True)`` step writes each slot's new rows through
+        its block table into the stacked pools ``pk``/``pv`` (L, num_blocks,
+        Hkv, bs, D) and walks them; ``tables`` (B, max_blocks) int32 and
+        ``active`` (B,) bool are data. Inactive slots write to the NULL block
+        and attend their frozen ``lengths`` rows; the caller masks their
+        logits. Returns (logits (B, V) fp32, pk, pv), the pools updated in
+        place."""
+        x = self.params.embed[self._tokens(token)]
+        x, pk, pv = step_fn(mega_layers, x, pk, pv, lengths, active=active, tables=tables)
+        logits = fused_norm_head(x, self.params.final_norm, self.params.lm_head, eps=self.config.rms_eps)
+        return logits, pk, pv
 
 
 class Qwen3MoE(DenseLLM):

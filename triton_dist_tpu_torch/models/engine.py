@@ -1,6 +1,8 @@
 """Inference engine at world 1: counterpart of ``triton_dist_tpu/models/engine.py``
 (``sample_token``, ``Engine.serve``, ``alloc_slots``, ``prefill_into_slot``,
-``decode_steps``).
+``decode_steps``, and the paged-KV entry points ``alloc_paged``,
+``paged_kbuf_zeros``, ``prefill_chunk``, ``complete_paged_prefill``,
+``decode_steps_paged``).
 
 PyTorch runs eagerly, so where JAX jit-compiles one program per shape and
 loops on the device with ``fori_loop``, this engine calls the model step by
@@ -8,17 +10,21 @@ step from a Python loop (CUDA graphs are later work). The model is a
 ``DenseLLM`` or a ``Qwen3MoE``; the engine does not look at its MLP. The
 backends ``xla``, ``dist`` and ``dist_ar`` are ported (at world 1 the
 dense layers compute the same in each; the MoE layers' ``xla`` mode uses
-plain grouped GEMMs), and ``mega`` for the dense model: prefill in
-``dist_ar`` mode, every decode step one recorded task graph lowered to
-the fused decode kernels (``megakernel/``). Caches are updated in place.
+plain grouped GEMMs), and ``mega``: prefill in ``dist_ar`` mode, every
+decode step one recorded task graph lowered to the fused decode kernels
+(``megakernel/``), over the contiguous slot cache or, paged, directly over
+the block pool. The other backends decode a paged pool by gathering it into
+the contiguous layout, running ``decode_steps`` and scattering the chunk's
+rows back. Caches and pools are updated in place.
 """
 
 from __future__ import annotations
 
 import torch
 
+from triton_dist_tpu_torch.kernels.flash_decode import gather_paged_kv
 from triton_dist_tpu_torch.models.dense import DenseLLM
-from triton_dist_tpu_torch.models.kv_cache import KVCache
+from triton_dist_tpu_torch.models.kv_cache import NULL_BLOCK, KVCache, PagedKVCache
 
 _BACKENDS = ("xla", "dist", "dist_ar", "mega")
 # Every backend resolves in both maps. mega prefills op by op in dist_ar
@@ -26,6 +32,13 @@ _BACKENDS = ("xla", "dist", "dist_ar", "mega")
 # decodes fused.
 PREFILL_MODE = {"xla": "xla", "dist": "dist", "dist_ar": "dist_ar", "mega": "dist_ar"}
 DECODE_MODE = {"xla": "xla", "dist": "dist_ar", "dist_ar": "dist_ar", "mega": "mega"}
+# Chunked (paged) prefill runs in a replicated mode.
+CHUNK_MODE = {"xla": "xla", "dist": "dist_ar", "dist_ar": "dist_ar", "mega": "dist_ar"}
+#: What prefix reuse and speculative decoding wait for.
+PREFIX_REUSE = ("prefix reuse (paged_seed_kbuf) comes with the serving scheduler and server, "
+                "ROADMAP queue 1 item A")
+SPECULATIVE = ("speculative decoding (the drafter, spec_decode_steps and its paged twin) is "
+               "ROADMAP queue 1 item C")
 
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
@@ -69,10 +82,13 @@ class Engine:
         self.top_p = top_p
         self.prefill_mode = PREFILL_MODE[backend]
         self.decode_mode = DECODE_MODE[backend]
+        self.chunk_mode = CHUNK_MODE[backend]
         self.kv_cache: KVCache | None = None
         if backend == "mega":
-            # Built once: the step function and the per-layer weight views.
+            # Built once: the step functions (contiguous and paged) and the
+            # per-layer weight views.
             self._mega_step = model.mega_step_fn()
+            self._mega_paged_step = model.mega_step_fn(paged=True)
             self._mega_layers = model.split_layer_params()
 
     @property
@@ -134,6 +150,26 @@ class Engine:
         token0 = self._sample(logits, generator)
         return token0[0], cache
 
+    def _decode_loop(self, step, tokens, remaining, lengths0: torch.Tensor, chunk: int, generator):
+        """``chunk`` steps of ``step(token, lengths, active) -> logits`` with
+        a per-slot active mask (``remaining > 0``): inactive slots re-feed
+        their last token, emit -1 and keep their lengths frozen. Returns
+        ``(out (B, chunk) int32, last_tokens (B,), lengths', remaining')``."""
+        token = torch.as_tensor(tokens, device=self.device).to(torch.int32)
+        remaining = torch.as_tensor(remaining, device=self.device).to(torch.int32).clone()
+        lengths = lengths0.clone()
+        out = torch.full((token.shape[0], chunk), -1, dtype=torch.int32, device=self.device)
+        for i in range(chunk):
+            active = remaining > 0
+            nxt = self._sample(step(token, lengths, active), generator)
+            nxt = torch.where(active, nxt, token)
+            out[:, i] = torch.where(active, nxt, torch.full_like(nxt, -1))
+            step_ = active.to(torch.int32)
+            lengths += step_
+            remaining -= step_
+            token = nxt
+        return out, token, lengths, remaining
+
     def decode_steps(self, cache: KVCache, tokens, remaining, chunk: int,
                      generator: torch.Generator | None = None):
         """``chunk`` decode steps over the slot batch with a per-slot active
@@ -141,21 +177,112 @@ class Engine:
         emit -1 and keep their lengths frozen. Returns ``(out (B, chunk)
         int32, last_tokens (B,), cache, remaining')``; ``cache`` is updated
         in place."""
-        token = torch.as_tensor(tokens, device=self.device).to(torch.int32)
-        remaining = torch.as_tensor(remaining, device=self.device).to(torch.int32).clone()
-        lengths = cache.lengths.clone()
-        out = torch.full((token.shape[0], chunk), -1, dtype=torch.int32, device=self.device)
-        for i in range(chunk):
-            active = remaining > 0
-            nxt = self._sample(self._decode(token, cache, lengths), generator)
-            nxt = torch.where(active, nxt, token)
-            out[:, i] = torch.where(active, nxt, torch.full_like(nxt, -1))
-            step = active.to(torch.int32)
-            lengths += step
-            remaining -= step
-            token = nxt
+        out, token, lengths, remaining = self._decode_loop(
+            lambda tok, lens, act: self._decode(tok, cache, lens), tokens, remaining, cache.lengths,
+            chunk, generator)
         cache.lengths.copy_(lengths)
         return out, token, cache, remaining
+
+    # ----------------------------------------------- serving (paged blocks)
+    def alloc_paged(self, num_slots: int, *, block_size: int, num_blocks: int,
+                    quant: str | None = None) -> PagedKVCache:
+        """A fresh paged KV: a zeroed global pool of ``num_blocks`` blocks of
+        ``block_size`` rows and all-NULL per-slot block tables sized for
+        ``max_len``. Block 0 is the reserved NULL block (``BlockAllocator``
+        never hands it out). The caller sets ``tables`` and ``lengths``.
+        ``quant`` pools are not ported (ROADMAP queue 1 item E)."""
+        c = self.model.config
+        return PagedKVCache.create(
+            c.num_layers, num_slots, c.num_kv_heads, c.head_dim, block_size=block_size,
+            num_blocks=num_blocks, max_len=self.max_len, dtype=self.model.params.embed.dtype,
+            device=self.device, quant=quant,
+        )
+
+    def paged_kbuf_zeros(self, p_len: int):
+        """Zeroed (L, 1, Hkv, p_len, D) chunked-prefill context buffers, K
+        and V."""
+        c = self.model.config
+        shape = (c.num_layers, 1, c.num_kv_heads, p_len, c.head_dim)
+        dt = self.model.params.embed.dtype
+        return (torch.zeros(shape, dtype=dt, device=self.device),
+                torch.zeros(shape, dtype=dt, device=self.device))
+
+    def paged_seed_kbuf(self, paged: PagedKVCache, table_row, shared_rows: int, p_len: int):
+        """Context buffers seeded with a reused prefix: not ported yet."""
+        raise NotImplementedError(PREFIX_REUSE)
+
+    @torch.no_grad()
+    def prefill_chunk(self, kbuf, vbuf, chunk_ids, off: int, last_idx: int):
+        """One chunk of an incremental prefill against the running context
+        buffers (written in place). ``chunk_ids`` (1, C), the final chunk
+        padded to C (rows past the buffer are dropped); ``off`` is the
+        chunk's absolute start, ``last_idx`` the row whose logits matter
+        (the prompt's last token, on the final chunk). Returns (logits
+        (1, V) fp32, kbuf, vbuf)."""
+        ids = torch.as_tensor(chunk_ids, device=self.device)
+        logits, (kbuf, vbuf) = self.model.prefill_chunk(ids, kbuf, vbuf, int(off), int(last_idx),
+                                                        mode=self.chunk_mode)
+        return logits, kbuf, vbuf
+
+    @torch.no_grad()
+    def complete_paged_prefill(self, paged: PagedKVCache, kbuf, vbuf, table_row,
+                               start_block: int) -> PagedKVCache:
+        """Scatter a finished prefill's context buffers into the pool along
+        the slot's block chain ``table_row``, block by block; blocks below
+        ``start_block`` are prefix-shared and redirect to the NULL block
+        instead of being rewritten. The pools are written in place; the
+        tables and lengths are the caller's to update."""
+        bs = paged.block_size
+        nl, _, hkv, p_len, hd = kbuf.shape
+        mbf = -(-p_len // bs)
+        row = torch.as_tensor(table_row, device=self.device).to(torch.long)
+        if row.numel() < mbf:
+            raise ValueError(f"a table row of {row.numel()} blocks cannot hold {p_len} rows of {bs}")
+        owned = torch.arange(mbf, device=self.device) >= start_block
+        phys = torch.where(owned, row[:mbf], torch.full_like(row[:mbf], NULL_BLOCK))
+
+        def blocks_of(buf):  # (L, 1, Hkv, P, D) → (L, mbf, Hkv, bs, D)
+            x = torch.nn.functional.pad(buf[:, 0], (0, 0, 0, mbf * bs - p_len))
+            return x.reshape(nl, hkv, mbf, bs, hd).transpose(1, 2)
+
+        paged.k[:, phys] = blocks_of(kbuf)
+        paged.v[:, phys] = blocks_of(vbuf)
+        return paged
+
+    @torch.no_grad()
+    def decode_steps_paged(self, paged: PagedKVCache, tokens, remaining, chunk: int,
+                           generator: torch.Generator | None = None):
+        """Paged ``decode_steps``, with the same active-mask rules. On
+        ``mega`` every step runs directly against the block pool (the paged
+        step graph: tables and the active mask are data; an inactive slot
+        writes to the NULL block). The other backends gather the pool into
+        the contiguous layout, run ``decode_steps`` on it, then scatter each
+        slot's rows written in this chunk back along its table, masked rows
+        to the NULL block. Returns ``(out, last_tokens, paged, remaining')``;
+        the pools and ``paged.lengths`` are updated in place."""
+        if self.decode_mode == "mega":
+            def step(tok, lens, act):
+                logits, _, _ = self.model.decode_mega_paged(
+                    self._mega_paged_step, self._mega_layers, tok, paged.k, paged.v, paged.tables,
+                    lens, act)
+                return logits
+
+            out, token, lengths, rem = self._decode_loop(step, tokens, remaining, paged.lengths, chunk,
+                                                         generator)
+            paged.lengths.copy_(lengths)
+            return out, token, paged, rem
+        lengths0 = paged.lengths.clone()
+        remaining0 = torch.as_tensor(remaining, device=self.device).to(torch.int32)
+        cache = KVCache(k=gather_paged_kv(paged.k, paged.tables), v=gather_paged_kv(paged.v, paged.tables),
+                        lengths=lengths0.clone())
+        out, token, cache, rem = self.decode_steps(cache, tokens, remaining0, chunk, generator)
+        _scatter_chunk(paged, cache, lengths0, remaining0, chunk)
+        paged.lengths.copy_(cache.lengths)
+        return out, token, paged, rem
+
+    def spec_decode_steps_paged(self, paged: PagedKVCache, dstate, tokens, remaining, chunk: int, k: int):
+        """Speculative twin of ``decode_steps_paged``: not ported yet."""
+        raise NotImplementedError(SPECULATIVE)
 
     # ----------------------------------------------------------------- serve
     @torch.no_grad()
@@ -181,3 +308,21 @@ class Engine:
         # last generated token's KV is not written yet.
         self.kv_cache = KVCache(k=cache.k, v=cache.v, lengths=cache.lengths + gen_len - 1)
         return out
+
+
+def _scatter_chunk(paged: PagedKVCache, cache: KVCache, lengths0: torch.Tensor,
+                   remaining0: torch.Tensor, chunk: int) -> None:
+    """Write a decode chunk's contiguous rows back into the pool: row r of
+    slot b landed at ``lengths0[b] + r`` (capped at the last row) and is real
+    while ``r < remaining0[b]``; masked rows go to the NULL block."""
+    bs = paged.block_size
+    smax = cache.k.shape[3]
+    nv = remaining0.clamp(0, chunk)
+    rows = torch.arange(paged.tables.shape[0], device=lengths0.device)
+    for r in range(chunk):
+        pos = (lengths0 + r).clamp(max=smax - 1).long()
+        blk = torch.gather(paged.tables, 1, (pos // bs)[:, None])[:, 0].long()
+        phys = torch.where(r < nv, blk, torch.full_like(blk, NULL_BLOCK))
+        sub = pos % bs
+        paged.k[:, phys, :, sub] = cache.k[:, rows, :, pos]
+        paged.v[:, phys, :, sub] = cache.v[:, rows, :, pos]
