@@ -33,7 +33,19 @@ then, on the card:
    top-8, bf16) with the same four requests and a batch-8 ``serve`` on
    ``dist``, and the four requests on ``mega`` through the pool, each run's
    counts read around its own run;
-5. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+5. spawns four rank processes at tensor-parallel world 4, rank r on card
+   ``r % device_count`` (four ranks share the card when there is one; the
+   GPU then time-slices their contexts), which map each other's
+   symmetric heap through CUDA IPC: (5a) rows 16-19 and the barrier
+   against their plain versions at the Qwen3-8B world-4 shapes and at the
+   edges, rows 18 and 19 bitwise equal on every rank, each timed beside its
+   bound and, when every rank has its own card, beside NCCL + cuBLAS; (5b)
+   a small fp32 model served on ``dist``, ``dist_ar`` and ``xla`` on the
+   card and on the CPU inside the same ranks, tokens equal; (5c) Qwen3-8B at
+   full width and depth served on ``dist`` (four slots, 32 steps, one
+   ``serve``) plus one ``dist_ar`` prefill, launch counts read around that
+   run and held to the routers' prediction;
+6. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 It exits nonzero and prints no result when CUDA is unavailable, when run
 away from the repository, or when any phase fails.
@@ -86,10 +98,23 @@ MEGA_LENGTHS = (1, 777, 1500, MAX_LEN - 1)
 PAGED_BS = 16
 PAGED_CHUNK = 256
 MOE_CAPACITIES = (8, 16)
+# Phase 5: four ranks, tensor-parallel world 4. The dist prefill splits
+# B·S rows over the ranks, so every prompt is a multiple of 4 tokens; the
+# serve is 2 rows of 128 + 16. NVLink's rate in one direction (H100 SXM
+# data sheet: 900 GB/s both ways) bounds what crosses between ranks.
+WORLD = 4
+W4_PROMPTS = (96, 384, 776, 1500)
+W4_SERVE = (2, 128, 16)
+LINK_BYTES_PER_S = 450e9
+W4_TIMEOUT_S = 700
+#: The kernels of the multi-rank layer (rows 16-19 and the barrier).
+COLLECTIVE_KERNELS = ("ag_gemm_fused", "gemm_rs_fused", "gemm_ar_fused", "gemm_ar_ll", "barrier_all_on_device")
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # One write per line: phase 5's four rank processes share the stream.
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -149,10 +174,15 @@ _MEGA_FAMILIES = (("qkv_partial", "fused_ln_qkv_rope"), ("qkv_epilogue", "fused_
                   ("mlp_tile", "fused_mlp_block"), ("mlp_reduce", "fused_mlp_block"),
                   ("norm_head", "fused_norm_head"), ("paged_decode", "paged_flash_decode"),
                   ("moe_tile", "fused_moe_block"), ("moe_reduce", "fused_moe_block"))
+# The kernels of the multi-rank layer all take tdt::Shmem first.
+_SHMEM_FAMILIES = (("ag_push", "ag_gemm_fused"), ("ag_gemm", "ag_gemm_fused"),
+                   ("partial_kernel", "rows 17-19 partials"), ("reduce_kernel", "rows 17-19 reduce"),
+                   ("gather_kernel", "gemm_ar_fused broadcast"), ("barrier_kernel", "barrier_all_on_device"))
 
 
 def _family(kernel_name: str) -> str:
-    for word, family in _MEGA_FAMILIES:
+    families = _SHMEM_FAMILIES if "Shmem" in kernel_name else _MEGA_FAMILIES
+    for word, family in families:
         if word in kernel_name:
             return family
     if "flash_fwd" in kernel_name:
@@ -898,6 +928,7 @@ def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str,
         "fused_mlp_block": layers * steps if mega and not cfg.is_moe else 0,
         "fused_norm_head": steps if mega else 0,
         "fused_moe_block": layers * steps if mega and cfg.is_moe else 0,
+        **{name: 0 for name in COLLECTIVE_KERNELS},  # world 1 runs no collective
     }
 
 
@@ -1085,6 +1116,508 @@ def moe_layer_breakdown(model, dev, tokens: int, mode: str) -> None:
     log(f"moe layer T={tokens} mode={mode} C={cap}: " + "; ".join(parts))
 
 
+# ------------------------------------------ 5. world 4: four rank processes
+
+def bound3_ms(flops: float, hbm_bytes: float, link_bytes: float) -> tuple[float, str]:
+    """The least time of a collective call: the largest of its FLOPs at the
+    bf16 peak, its HBM bytes at the HBM rate and its NVLink bytes at one
+    direction's rate."""
+    t_ops, t_hbm, t_link = flops / PEAK_BF16_FLOPS, hbm_bytes / PEAK_BYTES_PER_S, link_bytes / LINK_BYTES_PER_S
+    return max(t_ops, t_hbm, t_link) * 1e3, ("operations" if t_ops >= max(t_hbm, t_link) else "bytes")
+
+
+def time_collective(ctx, fn, flush_buf, iters: int = 20, warmup: int = 3) -> float:
+    """Median of per-call CUDA-event times of a collective ``fn``, every rank
+    calling it alike: L2 flushed, a 0.2 ms spin, then the device barrier, so
+    all ranks start the timed call together; the events bracket the call."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import barrier_all_on_device
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush_buf.zero_()
+        torch.cuda._sleep(400_000)
+        barrier_all_on_device(ctx)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _same_on_every_rank(ctx, t) -> bool:
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    digest = hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    digests = [None] * ctx.world
+    dist.all_gather_object(digests, digest, group=ctx.group)
+    return len(set(digests)) == 1
+
+
+def rlog(ctx, msg: str) -> None:
+    log(f"[rank {ctx.rank}] {msg}")
+
+
+def check_collective_kernels(ctx, flush_buf, nccl) -> dict[str, dict]:
+    """5a: rows 16-19 and the barrier against their plain versions at the
+    Qwen3-8B world-4 shapes of the main path and at the edges (bf16). Every
+    rank draws every rank's inputs from one seed and computes the reference
+    alone; the plain version (the plain collective plus the fp32 product) is
+    timed beside the kernel. Rows 18 and 19 must give the same bits on every
+    rank. ``nccl``: a separate NCCL group for the yardstick, or None (ranks
+    share a card)."""
+    import time as _time
+
+    import torch
+    import torch.distributed as dist
+
+    from triton_dist_tpu_torch.kernels import (
+        ag_gemm_fused,
+        ag_gemm_reference,
+        barrier_all_on_device,
+        gemm_ar_fused,
+        gemm_ar_ll,
+        gemm_ar_reference,
+        gemm_rs_fused,
+        gemm_rs_reference,
+    )
+    from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_cost
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_cost
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs_cost
+    from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
+    from triton_dist_tpu_torch.models import PRESETS
+
+    c = PRESETS["qwen3-8b"]
+    w, me, dev = ctx.world, ctx.rank, ctx.device
+    d = c.hidden_size
+    n_qkv = (c.num_q_heads + 2 * c.num_kv_heads) * c.head_dim // w
+    ff_l, k_o = c.intermediate_size // w, c.num_q_heads * c.head_dim // w
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)  # the same draws on every rank
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    entries = {}
+
+    def record(name, source, replaces, kernel, plain, library, cost):
+        kernel_ms = time_collective(ctx, kernel, flush_buf)
+        plain_ms = time_collective(ctx, plain, flush_buf, iters=5)
+        lib_ms = time_collective(ctx, library, flush_buf) if library is not None else None
+        b_ms, b_by = bound3_ms(*cost)
+        rlog(ctx, f"{name} timed: kernel_ms {kernel_ms}, plain_ms {plain_ms}, library_ms(NCCL + cuBLAS) "
+             f"{lib_ms}, bound_ms {b_ms} ({b_by}; {cost[0]} FLOP, {cost[1]} HBM bytes, {cost[2]} NVLink bytes)")
+        entries[name] = dict(name=name, route="cuda", source=source, replaces=replaces, ms=kernel_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    # Row 16: AG(A) @ B and the SwiGLU pair. (label, m_shard, n, swiglu, timed)
+    err16 = 0.0
+    for label, m, n, swiglu, timed in (("wqkv S=1500", 375, n_qkv, False, False),
+                                       ("gate/up S=1500", 375, ff_l, True, True),
+                                       ("edge m_shard=33", 33, n_qkv, False, False),
+                                       ("edge m_shard=1", 1, ff_l, True, False)):
+        a_all = randn(w * m, d)
+        bs_all = [randn(d, w * n, scale=d ** -0.5) for _ in range(2 if swiglu else 1)]
+        a = a_all[me * m:(me + 1) * m].contiguous()
+        bs = tuple(b[:, me * n:(me + 1) * n].contiguous() for b in bs_all)
+        got = ag_gemm_fused(ctx, a, bs)
+        if swiglu:
+            want = (torch.nn.functional.silu(matmul_f32(a_all, bs[0])) * matmul_f32(a_all, bs[1])).to(a.dtype)
+        else:
+            want = matmul_f32(a_all, bs[0]).to(a.dtype)
+        plain = ag_gemm_reference(ctx, a, bs)
+        torch.cuda.synchronize()
+        err = close(got, want, BF16_ATOL, BF16_RTOL)
+        close(plain, want, BF16_ATOL, BF16_RTOL)
+        err16 = max(err16, err)
+        rlog(ctx, f"ag_gemm_fused {label} (m_shard {m}, k {d}, n {n}, {'SwiGLU' if swiglu else 'plain'}): "
+             f"max|err| {err:.3e}")
+        if timed:
+            def library(a=a, bs=bs):
+                g = torch.empty((w * m, d), dtype=a.dtype, device=dev)
+                dist.all_gather_into_tensor(g, a, group=nccl)
+                return torch.mm(g, torch.cat(bs, dim=1))
+            record("ag_gemm_fused", "triton_dist_tpu_torch/csrc/collective_gemm.cu",
+                   "triton_dist_tpu/kernels/allgather_gemm.py:336",
+                   lambda: ag_gemm_fused(ctx, a, bs), lambda: ag_gemm_reference(ctx, a, bs),
+                   library if nccl is not None else None, ag_gemm_cost(m, d, n, w, len(bs), 2))
+    entries["ag_gemm_fused"]["max_abs_err"] = err16
+
+    def partials(m, k, n):
+        a_all, b_all = randn(w, m, k), randn(w, k, n, scale=(w * k) ** -0.5)
+        total = matmul_f32(a_all[0], b_all[0])
+        for r in range(1, w):
+            total += matmul_f32(a_all[r], b_all[r])  # rank order
+        return a_all[me].contiguous(), b_all[me].contiguous(), total.to(torch.bfloat16)
+
+    # Row 17: RS(A @ B) by rows.
+    err17 = 0.0
+    for label, m, k, timed in (("wo S=1500", 1500, k_o, False), ("down S=1500", 1500, ff_l, True),
+                               ("edge m=4", 4, k_o, False)):
+        a, b, total = partials(m, k, d)
+        chunk = m // w
+        got = gemm_rs_fused(ctx, a, b)
+        plain = gemm_rs_reference(ctx, a, b)
+        torch.cuda.synchronize()
+        want = total[me * chunk:(me + 1) * chunk]
+        err = close(got, want, BF16_ATOL, BF16_RTOL)
+        close(plain, want, BF16_ATOL, BF16_RTOL)
+        err17 = max(err17, err)
+        rlog(ctx, f"gemm_rs_fused {label} (m {m}, k {k}, n {d}): max|err| {err:.3e}")
+        if timed:
+            def library(a=a, b=b, chunk=chunk):
+                out = torch.empty((chunk, d), dtype=a.dtype, device=dev)
+                dist.reduce_scatter_tensor(out, torch.mm(a, b), group=nccl)
+                return out
+            record("gemm_rs_fused", "triton_dist_tpu_torch/csrc/collective_gemm.cu",
+                   "triton_dist_tpu/kernels/gemm_reduce_scatter.py:170",
+                   lambda: gemm_rs_fused(ctx, a, b), lambda: gemm_rs_reference(ctx, a, b),
+                   library if nccl is not None else None, gemm_rs_cost(m, k, d, w, 2))
+    entries["gemm_rs_fused"]["max_abs_err"] = err17
+
+    # Rows 18 and 19: AR(A @ B), the same bits on every rank.
+    for name, fn, replaces, cases in (
+            ("gemm_ar_fused", gemm_ar_fused, "triton_dist_tpu/kernels/gemm_allreduce.py:143",
+             (("wo S=1500", 1500, k_o, False), ("down S=1500", 1500, ff_l, True), ("edge m=68", 68, ff_l, False),
+              ("edge m=4", 4, k_o, False))),
+            ("gemm_ar_ll", gemm_ar_ll, "triton_dist_tpu/kernels/gemm_allreduce.py:501",
+             (("wo B=4", 4, k_o, False), ("down B=4", 4, ff_l, True), ("edge m=3", 3, ff_l, False),
+              ("edge m=1", 1, k_o, False)))):
+        err_max = 0.0
+        for label, m, k, timed in cases:
+            a, b, want = partials(m, k, d)
+            got = fn(ctx, a, b)
+            plain = gemm_ar_reference(ctx, a, b)
+            torch.cuda.synchronize()
+            err = close(got, want, BF16_ATOL, BF16_RTOL)
+            close(plain, want, BF16_ATOL, BF16_RTOL)
+            if not _same_on_every_rank(ctx, got):
+                raise AssertionError(f"{name} {label}: the ranks' outputs differ")
+            err_max = max(err_max, err)
+            rlog(ctx, f"{name} {label} (m {m}, k {k}, n {d}): max|err| {err:.3e}; bitwise equal on every rank")
+            if timed:
+                def library(a=a, b=b):
+                    p = torch.mm(a, b)
+                    dist.all_reduce(p, group=nccl)
+                    return p
+                record(name, "triton_dist_tpu_torch/csrc/collective_gemm.cu", replaces,
+                       lambda fn=fn, a=a, b=b: fn(ctx, a, b), lambda a=a, b=b: gemm_ar_reference(ctx, a, b),
+                       library if nccl is not None else None,
+                       gemm_ar_cost(m, k, d, w, 2, ll=name == "gemm_ar_ll"))
+        entries[name]["max_abs_err"] = err_max
+
+    # The barrier (row 24's first half): its plain version is the gloo barrier.
+    before = barrier_all_on_device.launches
+    barrier_all_on_device(ctx)
+    torch.cuda.synchronize()
+    if barrier_all_on_device.launches != before + 1:
+        raise AssertionError("barrier_all_on_device did not count its launch")
+    kernel_ms = time_collective(ctx, lambda: barrier_all_on_device(ctx), flush_buf)
+    t0 = _time.perf_counter()
+    for _ in range(20):
+        ctx.host_barrier()
+    plain_ms = (_time.perf_counter() - t0) * 1e3 / 20
+    lib_ms = time_collective(ctx, lambda: dist.barrier(group=nccl), flush_buf) if nccl is not None else None
+    b_ms, b_by = bound3_ms(0, 0, 8 * (w - 1))
+    rlog(ctx, f"barrier_all_on_device: kernel_ms {kernel_ms}, plain_ms (gloo, host clock) {plain_ms}, "
+         f"library_ms(NCCL barrier) {lib_ms}, bound_ms {b_ms} ({b_by})")
+    entries["barrier_all_on_device"] = dict(
+        name="barrier_all_on_device", route="cuda", source="triton_dist_tpu_torch/csrc/shmem.cu",
+        replaces="triton_dist_tpu/kernels/common_ops.py:29", ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, max_abs_err=0.0)
+    ctx.check_status()
+    return entries
+
+
+def parity_world4(ctx) -> None:
+    """5b: a small fp32 model at world 4, on the card and on the CPU (the
+    plain versions over gloo) inside the same ranks, on ``dist``,
+    ``dist_ar`` and ``xla``: greedy tokens equal, logits close. Prompts of
+    2 x 132 and 132 tokens take rows 16, 17 and 18; every step takes 19."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import DenseLLM, Engine, ModelConfig, init_params, params_from_numpy
+    from triton_dist_tpu_torch.runtime.mesh import all_gather
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2, num_q_heads=8,
+                      num_kv_heads=4, head_dim=64, dtype="float32")
+    full = init_params(cfg, torch.Generator().manual_seed(SEED + 11), "cpu")
+    arrays = {k: None if t is None else t.numpy() for k, t in vars(full).items()}
+    cpu = ctx.on_cpu()
+    m_gpu = DenseLLM(cfg, params_from_numpy(arrays, cfg, ctx.device, rank=ctx.rank, world=ctx.world), ctx=ctx)
+    m_cpu = DenseLLM(cfg, params_from_numpy(arrays, cfg, "cpu", rank=ctx.rank, world=ctx.world), ctx=cpu)
+    ids = torch.randint(0, cfg.vocab_size, (2, 132), generator=torch.Generator().manual_seed(SEED + 12))
+    reset_launch_counts()
+    errs, tokens = [], 0
+    for backend in ("dist", "dist_ar", "xla"):
+        e_gpu, e_cpu = Engine(m_gpu, backend=backend, max_len=160), Engine(m_cpu, backend=backend, max_len=160)
+        lg_gpu = all_gather(ctx, m_gpu.prefill(ids, mode=e_gpu.prefill_mode)[0], 1)
+        lg_cpu = all_gather(cpu, m_cpu.prefill(ids, mode=e_cpu.prefill_mode)[0], 1)
+        errs.append(close(lg_gpu.cpu(), lg_cpu, FP32_LOGITS_TOL, FP32_LOGITS_TOL))
+        tok_gpu, tok_cpu = e_gpu.serve(ids, gen_len=8), e_cpu.serve(ids, gen_len=8)
+        c_gpu, c_cpu = e_gpu.alloc_slots(2), e_cpu.alloc_slots(2)
+        t_gpu, t_cpu = [], []
+        for slot, n in enumerate((132, 12)):
+            t_gpu.append(e_gpu.prefill_into_slot(c_gpu, slot, ids[slot:slot + 1, :n])[0])
+            t_cpu.append(e_cpu.prefill_into_slot(c_cpu, slot, ids[slot:slot + 1, :n])[0])
+        rem = torch.tensor([6, 3], dtype=torch.int32)
+        out_gpu = e_gpu.decode_steps(c_gpu, torch.stack(t_gpu), rem, 6)[0]
+        out_cpu = e_cpu.decode_steps(c_cpu, torch.stack(t_cpu), rem, 6)[0]
+        if not (torch.equal(tok_gpu.cpu(), tok_cpu) and torch.equal(out_gpu.cpu(), out_cpu)):
+            raise AssertionError(f"world 4 {backend}: CUDA and CPU tokens differ:\ncuda {tok_gpu.tolist()} "
+                                 f"{out_gpu.tolist()}\ncpu  {tok_cpu.tolist()} {out_cpu.tolist()}")
+        tokens += tok_gpu.numel() + out_gpu.numel()
+    ctx.check_status()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    for name in ("ag_gemm_fused", "gemm_rs_fused", "gemm_ar_fused", "gemm_ar_ll"):
+        if not counts.get(name):
+            raise AssertionError(f"world 4 fp32 parity did not launch {name}: {counts}")
+    rlog(ctx, f"parity fp32 world 4 (L=2, d=256, Hq=8, Hkv=4, D=64; dist, dist_ar, xla): first logits max|err| "
+         f"{max(errs):.3e} (tol {FP32_LOGITS_TOL}); {tokens} tokens equal CUDA vs CPU; launches {counts}")
+
+
+def expected_world4(cfg, world: int, dist_rows: list[int], dist_ar_rows: list[int], steps: int) -> dict:
+    """Launches of a world-4 run: per layer of a ``dist`` prefill of m rows
+    the wqkv and gate/up AG-GEMMs (row 16 above the AG crossover, else the
+    ring) and the wo and down GEMM-RS (row 17 above the RS crossover, else
+    the ring); per layer of a ``dist_ar`` prefill two GEMM-AR (18 or 19); per
+    layer and decode step two of row 19. Every plain collective (a ring,
+    the prefill's gather of the rows, every gather of logits) is two
+    barriers."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import KERNELS
+    from triton_dist_tpu_torch.kernels.allgather_gemm import AGGemmMethod, get_auto_ag_gemm_method
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmARMethod, get_auto_gemm_ar_method
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import GemmRSMethod, get_auto_gemm_rs_method
+
+    layers, d = cfg.num_layers, cfg.hidden_size
+    n_qkv = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim // world
+    want = {name: 0 for name in KERNELS}
+    plain = steps
+    for m in dist_rows:
+        for n in (n_qkv, cfg.intermediate_size // world):
+            fused = get_auto_ag_gemm_method(m // world, d, n, torch.bfloat16, world) is AGGemmMethod.PALLAS_FUSED
+            want["ag_gemm_fused"] += layers if fused else 0
+            plain += 0 if fused else layers
+        fused = get_auto_gemm_rs_method(m, world) is GemmRSMethod.PALLAS_FUSED
+        want["gemm_rs_fused"] += 2 * layers if fused else 0
+        plain += 0 if fused else 2 * layers
+        plain += 2
+    for m in dist_ar_rows:
+        key = "gemm_ar_fused" if get_auto_gemm_ar_method(m, world) is GemmARMethod.PALLAS_FUSED else "gemm_ar_ll"
+        want[key] += 2 * layers
+        plain += 1
+    want["gemm_ar_ll"] += 2 * layers * steps
+    want["flash_attention"] = layers * (len(dist_rows) + len(dist_ar_rows))
+    want["flash_decode"] = layers * steps
+    want["barrier_all_on_device"] = 2 * plain
+    return want
+
+
+def serve_world4(ctx) -> dict[str, int]:
+    """5c: Qwen3-8B at full width and depth (bf16, random weights from one
+    seed, each rank its shard) at world 4 through ``Engine(backend="dist")``: four requests
+    into four slots, ``DECODE_STEPS`` steps at B = 4, one ``serve``; then one
+    ``dist_ar`` prefill of the longest prompt. Launch counts are read
+    around exactly that run and must equal ``expected_world4``."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine
+
+    cfg = PRESETS["qwen3-8b"]
+    dev = ctx.device
+    t0 = time.perf_counter()
+    model = DenseLLM(cfg, ctx=ctx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ctx.host_barrier()  # the ranks build at different speeds; the device waits start together
+    n_params = sum(t.numel() for t in vars(model.params).values() if t is not None)
+    rlog(ctx, f"qwen3-8b world 4: {cfg.num_layers} layers, {n_params / 1e9:.2f} B parameters on this rank, built in "
+         f"{time.perf_counter() - t0:.1f} s")
+    engine = Engine(model, backend="dist", max_len=MAX_LEN)
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def prompt(n, rows=1):
+        return torch.randint(0, cfg.vocab_size, (rows, n), generator=tgen, device=dev)
+
+    warm = engine.alloc_slots(4)
+    tok, warm = engine.prefill_into_slot(warm, 0, prompt(400))
+    engine.decode_steps(warm, torch.stack([tok] * 4), torch.tensor([2, 0, 0, 0]), 2)
+    del warm
+    prompts = [prompt(n) for n in W4_PROMPTS]
+    serve_rows, serve_prompt, serve_gen = W4_SERVE
+    serve_ids = prompt(serve_prompt, rows=serve_rows)
+    cache = engine.alloc_slots(len(prompts))
+    ar_engine = Engine(model, backend="dist_ar", max_len=MAX_LEN)
+    ar_cache = ar_engine.alloc_slots(1)
+    torch.cuda.synchronize()
+    ctx.host_barrier()
+    reset_launch_counts()
+    ttft, tokens0 = [], []
+    for slot, ids in enumerate(prompts):
+        t0 = time.perf_counter()
+        tok, cache = engine.prefill_into_slot(cache, slot, ids)
+        tokens0.append(int(tok))
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, last, cache, rem = engine.decode_steps(
+        cache, torch.tensor(tokens0, dtype=torch.int32), torch.full((4,), DECODE_STEPS), DECODE_STEPS)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    t0 = time.perf_counter()
+    served = engine.serve(serve_ids, gen_len=serve_gen)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ar_tok, _ = ar_engine.prefill_into_slot(ar_cache, 0, prompts[-1])
+    ar_ttft = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+
+    steps = DECODE_STEPS + serve_gen - 1
+    want = expected_world4(cfg, ctx.world, [*W4_PROMPTS, serve_rows * serve_prompt], [W4_PROMPTS[-1]], steps)
+    if launches != want:
+        raise AssertionError(f"world 4: launches on the served path {launches}, expected {want}")
+    for name, toks in (("decode_steps", out), ("serve", served)):
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"world 4 {name} produced tokens outside the vocabulary: {toks.tolist()}")
+    want_len = [n + DECODE_STEPS for n in W4_PROMPTS]
+    if cache.lengths.tolist() != want_len or rem.tolist() != [0] * 4:
+        raise AssertionError(f"world 4 slot lengths {cache.lengths.tolist()} != {want_len}")
+    step_logits = engine._decode(last, cache, cache.lengths)
+    if not bool(torch.isfinite(step_logits).all()):
+        raise AssertionError("world 4: non-finite logits")
+    if not _same_on_every_rank(ctx, torch.cat([out.flatten(), served.flatten(), torch.tensor(tokens0, device=dev)])):
+        raise AssertionError("world 4: the ranks sampled different tokens")
+    ctx.check_status()
+    rlog(ctx, "qwen3-8b world 4 [dist] TTFT " + ", ".join(f"prompt {n}: {t:.2f} ms" for n, t in zip(W4_PROMPTS, ttft))
+         + f"; [dist_ar] prompt {W4_PROMPTS[-1]}: {ar_ttft:.2f} ms (first token {int(ar_tok)}, dist gave "
+         f"{tokens0[-1]})")
+    rlog(ctx, f"qwen3-8b world 4 [dist] decode_steps B=4, {DECODE_STEPS} steps: {decode_ms:.2f} ms/step "
+         f"({4 * 1e3 / decode_ms:.1f} tokens/s); serve B={serve_rows} {serve_prompt}+{serve_gen}: {serve_ms:.1f} ms")
+    rlog(ctx, f"qwen3-8b world 4 launches ({len(W4_PROMPTS) + 1} dist prefills, 1 dist_ar prefill, {steps} steps): "
+         f"{ {k: v for k, v in launches.items() if v} }; equal on every rank; peak device memory "
+         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    for label, fn, n_steps, unprofiled in (
+            ("decode_steps B=4", lambda: engine.decode_steps(cache, last, torch.full((4,), 4), 4), 4, decode_ms),
+            (f"prefill {W4_PROMPTS[2]} tokens", lambda: model.prefill(prompts[2]), 1, ttft[2])):
+        ctx.host_barrier()
+        wall, busy, families, n_kernels = profile_window(fn)
+        if busy is None:
+            rlog(ctx, f"world 4 profile {label}: device time not measured (no CUDA kernels recorded)")
+            continue
+        shares = ", ".join(f"{k} {v / n_steps:.3f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+        rlog(ctx, f"world 4 profile {label}: profiled wall {wall / n_steps:.2f} ms/step, device busy "
+             f"{busy / n_steps:.3f} ms/step ({100 * busy / wall:.1f} %; unprofiled {unprofiled:.2f} ms/step), "
+             f"{n_kernels / n_steps:.0f} kernels/step; by family: {shares}")
+    return launches
+
+
+def _rank_main(rank: int, port: int, results) -> None:
+    """One rank of phase 5, in its own process: 5a, 5b, 5c. Any failure
+    reaches the parent as an error and a nonzero exit."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, ROOT)
+        from triton_dist_tpu_torch.runtime.mesh import initialize_distributed
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_num_threads(2)
+        ctx = initialize_distributed(rank, WORLD, f"tcp://localhost:{port}")
+        shared = torch.cuda.device_count() < WORLD
+        rlog(ctx, f"card cuda:{ctx.device.index} of {torch.cuda.device_count()} "
+             f"({'shared by the ranks' if shared else 'its own'})")
+        nccl = None if shared else dist.new_group(backend="nccl")  # the yardstick's; the port never uses it
+        flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=ctx.device)
+        t0 = time.perf_counter()
+        entries = check_collective_kernels(ctx, flush_buf, nccl)
+        rlog(ctx, f"5a (rows 16-19 and the barrier vs plain, timed): {time.perf_counter() - t0:.1f} s")
+        del flush_buf
+        t0 = time.perf_counter()
+        parity_world4(ctx)
+        rlog(ctx, f"5b (fp32 parity world 4, CUDA vs CPU): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches = serve_world4(ctx)
+        rlog(ctx, f"5c (qwen3-8b world 4): {time.perf_counter() - t0:.1f} s")
+        ctx.host_barrier()
+        results.put((rank, "ok", {"entries": entries, "launches": launches}))
+        ctx.heap.close()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
+        results.put((rank, "error", traceback.format_exc()))
+        sys.stdout.flush()
+        os._exit(1)
+
+
+def run_world4(timeout_s: float) -> tuple[dict[str, dict], dict[str, int]]:
+    """Phase 5: four rank processes, rank r on card ``r % device_count``
+    (the kernels are built already). Returns rank 0's kernel entries (the
+    max |error| over the ranks) and launch counts. Raises if any rank fails
+    or the phase outlives ``timeout_s``."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    import torch
+
+    shared = torch.cuda.device_count() < WORLD
+    log(f"phase 5: {WORLD} ranks on {torch.cuda.device_count()} card(s): "
+        + ", ".join(f"rank {r} -> cuda:{r % torch.cuda.device_count()}" for r in range(WORLD))
+        + ("; the ranks share a card, which runs their contexts in turns" if shared else ""))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    spawn = mp.get_context("spawn")
+    results = spawn.Queue()
+    procs = [spawn.Process(target=_rank_main, args=(r, port, results)) for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while len(got) < WORLD:
+            try:
+                rank, status, value = results.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise RuntimeError(f"phase 5: ranks exited {[p.exitcode for p in procs]} "
+                                       f"(timeout {timeout_s} s)") from None
+                continue
+            if status != "ok":
+                raise RuntimeError(f"phase 5: rank {rank} failed:\n{value}")
+            got[rank] = value
+        for p in procs:
+            p.join(timeout=120)
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"phase 5: rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if any(got[r]["launches"] != got[0]["launches"] for r in got):
+        raise AssertionError("phase 5: the ranks' launch counts differ")
+    entries = got[0]["entries"]
+    for name, e in entries.items():
+        e["max_abs_err"] = max(got[r]["entries"][name]["max_abs_err"] for r in got)
+    return entries, got[0]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1148,12 +1681,20 @@ def main() -> int:
                                  serve_gen=8))
     runs.append(serve_paged_full_width(model, "qwen3-moe-30b-a3b", dev)[0])
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 4 qwen3-moe-30b-a3b: {time.perf_counter() - t_phase:.1f} s")
 
-    # --------------------------------------------------------- 5. results
+    t_phase = time.perf_counter()
+    w4_entries, w4_launches = run_world4(timeout_s=W4_TIMEOUT_S)
+    entries.update(w4_entries)
+    runs.append(w4_launches)
+    log(f"phase 5 (world 4): {time.perf_counter() - t_phase:.1f} s")
+
+    # --------------------------------------------------------- 6. results
     kernels = []
     for name in ("flash_attention", "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS, "paged_flash_decode",
-                 "fused_moe_block"):
+                 "fused_moe_block", *COLLECTIVE_KERNELS):
         e = dict(entries[name])
         e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",

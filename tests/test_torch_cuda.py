@@ -13,6 +13,7 @@ to bf16 (8 significant bits), so ``|err| <= 1e-2 + 2e-2·|plain|``.
 
 import pytest
 import torch
+from test_torch_tp_ranks import Ranks
 
 from triton_dist_tpu_torch.kernels import (
     attention_reference,
@@ -446,3 +447,48 @@ def test_paged_mega_engine_on_cuda_matches_cpu(cuda, preset):
         outs.append((out.cpu(), paged.lengths.cpu().tolist()))
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
     assert outs[1][1] == outs[0][1] == [9 + 6, 0, 4 + 4]
+
+
+# --------------------------------------------- world 4: rows 16-19, aborts
+
+WORLD = 4
+
+
+@pytest.fixture(scope="module")
+def cuda_ranks(tmp_path_factory):
+    """Four rank processes on the available cards (rank r on card r %
+    count: four ranks share one card when there is one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
+    ranks = Ranks(tmp_path_factory.mktemp("tp_cuda") / "store", WORLD, device="cuda")
+    yield ranks
+    ranks.close()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_collective_kernels_world4_vs_plain(cuda_ranks, dtype):
+    """Rows 16-19 at the edges (one row, ragged shards, 65 rows, m = 3, a
+    ragged K of 96) against their plain versions; rows 18 and 19 give the
+    same bits on every rank; each call counts one launch."""
+    atol, rtol = TOL[dtype]
+    got = cuda_ranks.ok("cuda_kernels", dict(dtype=str(dtype).split(".")[1], seed=5, atol=atol, rtol=rtol))
+    for rank, res in enumerate(got):
+        for case, (err, within, same) in res["cases"].items():
+            assert within, f"rank {rank} {case}: max |err| {err}"
+            assert same in (None, True), f"rank {rank} {case}: the ranks' outputs differ"
+        assert res["launches"] == {"ag_gemm_fused": 4, "gemm_rs_fused": 2, "gemm_ar_fused": 2, "gemm_ar_ll": 4}
+
+
+def test_stalled_peer_ends_in_a_named_collective_abort(cuda, tmp_path):
+    """A rank that never arrives: the others' bounded waits expire and
+    ``check_status`` raises ``CollectiveAbort`` naming the phase and the
+    peer, instead of hanging."""
+    ranks = Ranks(tmp_path / "store", WORLD, device="cuda")
+    try:
+        got = ranks.ok("stall", dict(absent=WORLD - 1, timeout_s=2.0))
+    finally:
+        ranks.close()
+    assert got[WORLD - 1] is None
+    for msg in got[:WORLD - 1]:
+        assert msg is not None and msg.startswith("CollectiveAbort"), msg
+        assert "'ar_recv'" in msg and f"rank {WORLD - 1}" in msg, msg

@@ -41,6 +41,10 @@ def test_port_imports_without_jax():
     assert len(names) == len(list(PKG.rglob("*.py"))) - 1
     for mod in ("graph", "builder", "kernels"):
         assert f"triton_dist_tpu_torch.megakernel.{mod}" in names
+    # the multi-rank layer: mesh, the symmetric heap, rows 16-19 and the barrier
+    for mod in ("runtime.mesh", "shmem.symm", "kernels.allgather_gemm", "kernels.gemm_reduce_scatter",
+                "kernels.gemm_allreduce", "kernels.common_ops"):
+        assert f"triton_dist_tpu_torch.{mod}" in names
 
 
 _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+(jax\b|triton_dist_tpu(?!_torch)\b)", re.M)
@@ -61,6 +65,7 @@ def test_no_jax_or_jax_package_imports(path):
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     from triton_dist_tpu_torch import resolve_device
     from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Qwen3MoE, init_params
+    from triton_dist_tpu_torch.runtime.mesh import initialize_distributed
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = PRESETS["test-dense"]
@@ -72,6 +77,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Qwen3MoE(PRESETS["test-moe"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_distributed(0, 4, "tcp://localhost:1")  # raises before it joins a group
     assert resolve_device("cpu") == torch.device("cpu")
     assert DenseLLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).device.type == "cpu"
 

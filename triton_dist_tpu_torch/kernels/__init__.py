@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version. Every wrapper counts its launches in ``<wrapper>.launches``."""
 
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_fused, ag_gemm_reference
+from triton_dist_tpu_torch.kernels.common_ops import barrier_all_on_device
 from triton_dist_tpu_torch.kernels.flash_attn import attention_reference, flash_attention
 from triton_dist_tpu_torch.kernels.flash_decode import (
     decode_reference,
@@ -8,6 +10,8 @@ from triton_dist_tpu_torch.kernels.flash_decode import (
     paged_decode_reference,
     paged_flash_decode,
 )
+from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_fused, gemm_ar_ll, gemm_ar_reference
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs_fused, gemm_rs_reference
 from triton_dist_tpu_torch.kernels.group_gemm import group_gemm_swiglu, group_swiglu_reference
 from triton_dist_tpu_torch.kernels.mega_decode import (
     attn_back_reference,
@@ -32,6 +36,11 @@ KERNELS = {
     "fused_mlp_block": fused_mlp_block,
     "fused_norm_head": fused_norm_head,
     "fused_moe_block": fused_moe_block,
+    "ag_gemm_fused": ag_gemm_fused,
+    "gemm_rs_fused": gemm_rs_fused,
+    "gemm_ar_fused": gemm_ar_fused,
+    "gemm_ar_ll": gemm_ar_ll,
+    "barrier_all_on_device": barrier_all_on_device,
 }
 
 
@@ -46,6 +55,14 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNELS",
+    "ag_gemm_fused",
+    "ag_gemm_reference",
+    "barrier_all_on_device",
+    "gemm_ar_fused",
+    "gemm_ar_ll",
+    "gemm_ar_reference",
+    "gemm_rs_fused",
+    "gemm_rs_reference",
     "attention_reference",
     "attn_back_reference",
     "decode_reference",

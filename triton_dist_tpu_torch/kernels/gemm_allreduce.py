@@ -1,0 +1,154 @@
+"""GEMM-AR: the GEMM whose partial sums are all-reduced, every rank getting
+the whole product. Counterpart of ``triton_dist_tpu/kernels/gemm_allreduce.py``
+(``GemmARMethod``, ``get_auto_gemm_ar_method``, ``gemm_ar_shard``).
+
+``gemm_ar_shard(ctx, a, b)`` returns ``sum over ranks of a_r @ b_r`` (m, n) in
+a's dtype, the fp32 partials added in rank order, so every rank holds the
+same bits. At world 1 it is a plain product. ``XLA`` is ``psum`` of
+``runtime/mesh.py`` on the fp32 partial; ``LL_ONE_SHOT`` runs ``gemm_ar_ll``
+(row 19: tiny or ragged m, decode) and ``PALLAS_FUSED`` ``gemm_ar_fused``
+(row 18: m % world == 0 above the crossover), each the kernel of
+``csrc/collective_gemm.cu`` on CUDA tensors and its plain version on CPU
+tensors. ``ONE_SHOT`` needs row 22 and ``RS_AG`` rows 20 and 21; both raise.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import torch
+
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels.allgather_gemm import (
+    _U64,
+    check_operands,
+    collective_library,
+    dtype_code,
+    workspace_check,
+)
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import launch_rs_ar, tiles_ok
+from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
+from triton_dist_tpu_torch.runtime import mesh
+from triton_dist_tpu_torch.shmem.symm import ALIGN, MAX_SLOTS, WS_BYTES
+
+
+class GemmARMethod(enum.Enum):
+    AUTO = "auto"
+    PALLAS_FUSED = "pallas_fused"
+    LL_ONE_SHOT = "ll_one_shot"
+    RS_AG = "rs_ag"
+    ONE_SHOT = "one_shot"
+    XLA = "xla"
+
+
+#: Rows of M at or below which AUTO takes the low-latency kernel
+#: (``gemm_allreduce.py:78``).
+DEFAULT_GEMM_AR_CROSSOVER_M = 64
+NEEDS_ROW_22 = ("GemmARMethod.ONE_SHOT needs the one-shot all-reduce kernel (row 22, ROADMAP queue 1 "
+                "item C)")
+NEEDS_ROWS_20_21 = ("GemmARMethod.RS_AG needs the ring reduce-scatter and all-gather kernels (rows 20 and "
+                    "21, ROADMAP queue 1 item C)")
+
+
+def get_auto_gemm_ar_method(m: int, world: int) -> GemmARMethod:
+    """Ragged or decode-sized M take the low-latency kernel, larger M the
+    fused one (JAX ``get_auto_gemm_ar_method``)."""
+    if m % world != 0 or m <= DEFAULT_GEMM_AR_CROSSOVER_M:
+        return GemmARMethod.LL_ONE_SHOT
+    return GemmARMethod.PALLAS_FUSED
+
+
+def gemm_ar_reference(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of both kernels: the fp32 partial, ``psum`` (rank
+    order), cast once."""
+    return mesh.psum(ctx, matmul_f32(a, b)).to(a.dtype)
+
+
+def gemm_ar_fused(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row 18: a (m, k), b (k, n), m % world == 0 → (m, n), equal on every
+    rank: each rank reduces its m / world rows (rank order) and broadcasts
+    them. CUDA tensors launch the kernel; CPU tensors run
+    ``gemm_ar_reference``."""
+    if a.device.type == "cpu":
+        return gemm_ar_reference(ctx, a, b)
+    check_operands(ctx, a, (b,), "gemm_ar_fused")
+    m, n = a.shape[0], b.shape[1]
+    if m % ctx.world or not tiles_ok(m // ctx.world, n):
+        raise ValueError(f"gemm_ar_fused needs m % world == 0 and at most {MAX_SLOTS} tiles a chunk, "
+                         f"got m={m}, n={n}")
+    partials = -(-m * n * 4 // ALIGN) * ALIGN
+    workspace_check(partials + m * n * a.element_size(), "gemm_ar_fused")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    launch_rs_ar(ctx, a, b, out, partials, "gemm_ar_fused")
+    gemm_ar_fused.launches += 1
+    return out
+
+
+#: Kernel launches so far (CUDA calls only).
+gemm_ar_fused.launches = 0
+
+
+def gemm_ar_ll(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row 19: a (m, k), b (k, n), any m → (m, n), equal on every rank: each
+    rank pushes its fp32 partial to every rank, and every rank adds the
+    world partials in rank order. Rows past the workspace go in further
+    calls. CUDA tensors launch the kernel; CPU tensors run
+    ``gemm_ar_reference``."""
+    if a.device.type == "cpu":
+        return gemm_ar_reference(ctx, a, b)
+    check_operands(ctx, a, (b,), "gemm_ar_ll")
+    m, k = a.shape
+    n = b.shape[1]
+    heap = ctx.heap
+    rows = min(WS_BYTES // (ctx.world * n * 4), (MAX_SLOTS // -(-n // 64)) * 64)
+    if rows < 1:
+        raise ValueError(f"gemm_ar_ll: one row of n={n} exceeds the workspace")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    lib = collective_library()
+    for lo in range(0, m, rows):
+        hi = min(m, lo + rows)
+        epoch = heap.next_epoch()
+        code = lib.tdt_gemm_ar_ll(*heap.args(epoch), _build.ptr(a[lo:hi]), _build.ptr(b), _build.ptr(out[lo:hi]),
+                                  hi - lo, k, n, dtype_code(a), _U64(heap.ws_off[epoch % 2]),
+                                  _U64(heap.flags_off[epoch % 2]), _build.stream_ptr(a.device))
+        _build.check(lib, code, "gemm_ar_ll")
+    gemm_ar_ll.launches += 1
+    return out
+
+
+#: Kernel launches so far (CUDA calls only).
+gemm_ar_ll.launches = 0
+
+
+def gemm_ar_shard(ctx, a: torch.Tensor, b: torch.Tensor, *,
+                  method: GemmARMethod = GemmARMethod.AUTO) -> torch.Tensor:
+    """``all_reduce(a @ b)``: a (m, k_shard), b (k_shard, n) → (m, n) in a's
+    dtype, the same on every rank."""
+    if ctx is None or ctx.world == 1:
+        return a @ b
+    if method is GemmARMethod.AUTO:
+        method = get_auto_gemm_ar_method(a.shape[0], ctx.world)
+    if method is GemmARMethod.LL_ONE_SHOT:
+        return gemm_ar_ll(ctx, a, b)
+    if method is GemmARMethod.PALLAS_FUSED:
+        return gemm_ar_fused(ctx, a, b)
+    if method is GemmARMethod.ONE_SHOT:
+        raise NotImplementedError(NEEDS_ROW_22)
+    if method is GemmARMethod.RS_AG:
+        raise NotImplementedError(NEEDS_ROWS_20_21)
+    return gemm_ar_reference(ctx, a, b)
+
+
+def gemm_ar_cost(m: int, k: int, n: int, world: int, itemsize: int, *, ll: bool) -> tuple[int, int, int]:
+    """(FLOPs, HBM bytes, NVLink bytes) of one rank's call: a (m, k) @ b
+    (k, n); a and b read once, the (m, n) output written once. Over NVLink
+    the low-latency kernel sends its whole fp32 partial to each peer; the
+    fused one sends each owner its fp32 chunk and each owner broadcasts its
+    rounded chunk."""
+    flops = 2 * m * k * n
+    hbm = itemsize * (m * k + k * n + m * n)
+    if ll:
+        link = 4 * (world - 1) * m * n
+    else:
+        link = (world - 1) * (m // world) * n * (4 + itemsize)
+    return flops, hbm, link

@@ -1,15 +1,24 @@
-"""Tensor-parallel layers at world 1: RMSNorm, RoPE, attention, MLP, MoE.
+"""Tensor-parallel layers: RMSNorm, RoPE, attention, MLP, MoE.
 
 Counterpart of ``triton_dist_tpu/layers/tp.py`` (``RMSNorm``, ``apply_rope``,
-``TP_Attn``, ``TP_MLP``, ``TP_MoE``). At world 1 the JAX package's collective
-matmuls (``ag_gemm_shard``, ``ag_gemm_swiglu_shard``, ``gemm_rs_shard``,
-``gemm_ar_shard``) all short-circuit to a plain fp32-accumulating dot, so
-every mode (``xla``, ``dist``, ``dist_ar``) of the dense layers is the same
-computation here: ``torch.matmul`` plus the two attention kernels.
-``TP_MoE`` keeps the JAX branches by mode and token count; at world 1 they
-all route every token with one capacity, and all but ``xla`` run the
-grouped gate/up kernel. World > 1 needs the one-sided communication layer
-and is not ported yet.
+``TP_Attn``, ``TP_MLP``, ``TP_MoE``). A layer takes its rank's shard of the
+weights and the rank's ``runtime.mesh.DistContext`` (``ctx``; None at world
+1). Per rank, as in JAX: ``TP_Attn`` holds its ``wqkv`` columns (its q, k
+and v heads) and ``wo`` rows, ``TP_MLP`` its gate/up columns and down rows.
+The modes are JAX's:
+
+* ``xla``: plain products, then ``psum`` of the fp32 partials;
+* ``dist`` (prefill, x sequence-sharded in and out): ``ag_gemm_shard`` on
+  ``wqkv`` and ``ag_gemm_swiglu_shard`` on gate/up, ``gemm_rs_shard`` on
+  ``wo`` and down (rows 16 and 17 above their crossovers);
+* ``dist_ar`` (x replicated): plain products, ``gemm_ar_shard`` on ``wo``
+  and down (row 19 for decode-sized or ragged m, row 18 above).
+
+At world 1 every collective matmul is a plain product, so the three modes
+compute the same. ``TP_MoE`` keeps the JAX branches by mode and token
+count; at world 1 they all route every token with one capacity, and all
+but ``xla`` run the grouped gate/up kernel. ``TP_MoE`` at world > 1 needs
+``moe_comm``'s rings and raises.
 
 The caches are updated in place (JAX returns new arrays): ``decode`` and
 ``prefill_chunk`` write their new K/V rows into the tensors they are given
@@ -21,17 +30,21 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_shard, ag_gemm_swiglu_shard
 from triton_dist_tpu_torch.kernels.flash_attn import flash_attention
 from triton_dist_tpu_torch.kernels.flash_decode import flash_decode
+from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_shard
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs_shard
 from triton_dist_tpu_torch.kernels.group_gemm import group_gemm, group_gemm_swiglu, matmul_f32
 from triton_dist_tpu_torch.kernels.moe_comm import tp_moe_ar_shard, tp_moe_one_chunk, tp_moe_rs_shard
 from triton_dist_tpu_torch.kernels.moe_utils import CAPACITY_ALIGN
 from triton_dist_tpu_torch.kernels.norm_rope import apply_rope, rmsnorm
+from triton_dist_tpu_torch.runtime.mesh import psum
 
 MODES = ("xla", "dist", "dist_ar")
-_WORLD_GT_1 = (
-    "tensor-parallel world > 1 is not ported yet: it needs the one-sided "
-    "layer and the collective-matmul kernels (ROADMAP queue 1 item B)"
+MOE_WORLD_GT_1 = (
+    "TP_MoE at tensor-parallel world > 1 needs moe_comm's AG-MoE and MoE-RS rings "
+    "(ROADMAP queue 1 item B, its remainder)"
 )
 
 
@@ -40,9 +53,16 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
 
-def _check_world(world: int) -> None:
-    if world != 1:
-        raise NotImplementedError(_WORLD_GT_1)
+def _world(ctx) -> int:
+    return 1 if ctx is None else ctx.world
+
+
+def _psum_out(ctx, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The ``xla`` mode's row-parallel product: ``psum`` of the fp32
+    partial, cast once (a plain product at world 1)."""
+    if _world(ctx) == 1:
+        return a @ w
+    return psum(ctx, matmul_f32(a, w)).to(a.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -60,22 +80,28 @@ class RMSNorm(nn.Module):
 
 class TP_MLP(nn.Module):
     """SwiGLU MLP: ``silu(x @ w_gate) * (x @ w_up)`` in fp32, cast, then
-    ``@ w_down`` (``ag_gemm_swiglu_shard`` + ``gemm_rs_shard`` at world 1)."""
+    ``@ w_down``; ``w_gate``/``w_up`` (d, ff_local), ``w_down`` (ff_local, d)."""
 
-    def __init__(self, w_gate, w_up, w_down, *, world: int = 1):
+    def __init__(self, w_gate, w_up, w_down, *, ctx=None):
         super().__init__()
-        _check_world(world)
         self.register_buffer("w_gate", w_gate, persistent=False)
         self.register_buffer("w_up", w_up, persistent=False)
         self.register_buffer("w_down", w_down, persistent=False)
+        self.ctx = ctx
 
     def forward(self, x: torch.Tensor, mode: str = "dist") -> torch.Tensor:
-        """x: (m, d) → (m, d)."""
+        """x: (m_shard, d) for ``dist`` (sequence-sharded), (m, d) for
+        ``xla``/``dist_ar`` (replicated); the output is sharded like x."""
         _check_mode(mode)
+        if mode == "dist":
+            h = ag_gemm_swiglu_shard(self.ctx, x, self.w_gate, self.w_up)
+            return gemm_rs_shard(self.ctx, h, self.w_down)
         g = matmul_f32(x, self.w_gate)
         u = matmul_f32(x, self.w_up)
         h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-        return h @ self.w_down
+        if mode == "xla":
+            return _psum_out(self.ctx, h, self.w_down)
+        return gemm_ar_shard(self.ctx, h, self.w_down)
 
 
 #: TP-MoE routing capacity factor, shared by prefill and decode: every
@@ -100,15 +126,16 @@ class TP_MoE(nn.Module):
     Weights: ``w_router`` (d, E), ``w_gate`` and ``w_up`` (E, d, ff),
     ``w_down`` (E, ff, d)."""
 
-    def __init__(self, w_router, w_gate, w_up, w_down, *, top_k: int = 8, world: int = 1):
+    def __init__(self, w_router, w_gate, w_up, w_down, *, top_k: int = 8, ctx=None):
         super().__init__()
-        _check_world(world)
+        if _world(ctx) != 1:
+            raise NotImplementedError(MOE_WORLD_GT_1)
         self.register_buffer("w_router", w_router, persistent=False)
         self.register_buffer("w_gate", w_gate, persistent=False)
         self.register_buffer("w_up", w_up, persistent=False)
         self.register_buffer("w_down", w_down, persistent=False)
         self.top_k = top_k
-        self.world = world
+        self.world = 1
 
     def forward(self, x: torch.Tensor, mode: str = "dist_ar") -> torch.Tensor:
         """x (T, d) → (T, d), branch by branch as JAX's ``TP_MoE.__call__``:
@@ -146,13 +173,15 @@ class TP_MoE(nn.Module):
 
 class TP_Attn(nn.Module):
     """QKV projection → per-head q/k RMSNorm → RoPE → flash attention or
-    flash decode → O projection."""
+    flash decode → O projection, over this rank's heads: ``wqkv`` (d,
+    (hq + 2·hkv)·hd) read as [q | k | v] of the local heads, ``wo`` (hq·hd,
+    d); ``num_q_heads``/``num_kv_heads`` are the local counts."""
 
     def __init__(self, wqkv, wo, q_norm: RMSNorm | None, k_norm: RMSNorm | None, *,
                  num_q_heads: int, num_kv_heads: int, head_dim: int = 128,
-                 rope_theta: float = 1e6, world: int = 1):
+                 rope_theta: float = 1e6, ctx=None):
         super().__init__()
-        _check_world(world)
+        self.ctx = ctx
         self.register_buffer("wqkv", wqkv, persistent=False)
         self.register_buffer("wo", wo, persistent=False)
         self.q_norm = q_norm
@@ -179,15 +208,26 @@ class TP_Attn(nn.Module):
         k = apply_rope(k, pos, self.rope_theta).contiguous()
         return q, k, v.contiguous()
 
+    def _out(self, o: torch.Tensor, mode: str) -> torch.Tensor:
+        """The O projection of a replicated call: ``psum`` (``xla``) or
+        ``gemm_ar_shard``."""
+        if mode == "xla":
+            return _psum_out(self.ctx, o, self.wo)
+        return gemm_ar_shard(self.ctx, o, self.wo)
+
     def prefill(self, x: torch.Tensor, pos: torch.Tensor, mode: str = "dist", bsz: int = 1):
-        """x: (bsz·seq, d); pos: (bsz, seq). Returns (out (bsz·seq, d),
-        (k, v) each (B, Hkv, S, D))."""
+        """x: (bsz·seq, d) tokens, this rank's (bsz·seq / world) rows in
+        ``dist`` mode; pos: (bsz, seq). Returns (out sharded like x, (k, v)
+        each (B, Hkv_local, S, D))."""
         _check_mode(mode)
         seq = pos.shape[1]
-        q, k, v = self._rope_qk(x @ self.wqkv, pos, bsz, seq)
+        qkv = ag_gemm_shard(self.ctx, x, self.wqkv) if mode == "dist" else x @ self.wqkv
+        q, k, v = self._rope_qk(qkv, pos, bsz, seq)
         o = flash_attention(q, k, v, causal=True)
         o = o.transpose(1, 2).reshape(bsz * seq, -1)
-        return o @ self.wo, (k, v)
+        if mode == "dist":
+            return gemm_rs_shard(self.ctx, o, self.wo), (k, v)
+        return self._out(o, mode), (k, v)
 
     def prefill_chunk(self, x, pos, k_buf, v_buf, off: int, mode: str = "dist_ar",
                       bsz: int = 1):
@@ -204,7 +244,7 @@ class TP_Attn(nn.Module):
         v_buf[:, :, off:off + n] = v[:, :, :n]
         o = flash_attention(q, k_buf, v_buf, causal=True, q_offset=off, kv_offset=0)
         o = o.transpose(1, 2).reshape(bsz * seq, -1)
-        return o @ self.wo, (k_buf, v_buf)
+        return self._out(o, "xla" if mode == "xla" else "dist_ar"), (k_buf, v_buf)
 
     def decode(self, x, pos, k_cache, v_cache, lengths, mode: str = "dist_ar"):
         """One-token decode. x: (bsz, d); pos, lengths: (bsz,) int32; caches
@@ -221,4 +261,4 @@ class TP_Attn(nn.Module):
         k_cache[rows, :, idx] = torch.where(keep, k[:, :, 0], k_cache[rows, :, idx])
         v_cache[rows, :, idx] = torch.where(keep, v[:, :, 0], v_cache[rows, :, idx])
         o = flash_decode(q[:, :, 0].contiguous(), k_cache, v_cache, lengths + 1)
-        return o.reshape(bsz, -1) @ self.wo, (k_cache, v_cache)
+        return self._out(o.reshape(bsz, -1), "xla" if mode == "xla" else "dist_ar"), (k_cache, v_cache)

@@ -1,4 +1,4 @@
-"""Qwen3-class LLM, dense or MoE, at tensor-parallel world 1.
+"""Qwen3-class LLM, dense or MoE, over tensor-parallel ranks.
 
 Counterpart of ``triton_dist_tpu/models/dense.py`` (``DenseParams``,
 ``init_params``, ``DenseLLM.prefill_shard`` / ``prefill_chunk_shard`` /
@@ -7,6 +7,14 @@ Counterpart of ``triton_dist_tpu/models/dense.py`` (``DenseParams``,
 ported).
 Parameters are stacked over layers as in JAX; a Python loop over layers
 stands in for ``lax.scan``. The caches a step is given are updated in place.
+
+At world > 1 every rank holds its shard of the parameters, as JAX's
+``_specs`` (``dense.py:51-68``) places them: ``wqkv``, ``mlp_gate``,
+``mlp_up`` and ``lm_head`` split into contiguous column blocks, ``wo`` and
+``mlp_down`` into row blocks, the rest whole. JAX reads each rank's
+``wqkv`` block as [q | k | v] of its own heads, so on the same global arrays
+the world-4 model is not the world-1 model. The MoE layers and the mega
+backend at world > 1 are not ported and raise.
 """
 
 from __future__ import annotations
@@ -21,7 +29,28 @@ from triton_dist_tpu_torch.layers.tp import TP_Attn, TP_MLP, TP_MoE, RMSNorm
 from triton_dist_tpu_torch.megakernel.builder import ModelBuilder
 from triton_dist_tpu_torch.megakernel.kernels import fused_norm_head
 from triton_dist_tpu_torch.models.config import ModelConfig, torch_dtype
+from triton_dist_tpu_torch.runtime.mesh import all_gather
 from triton_dist_tpu_torch.runtime.platform import resolve_device
+
+#: The dimension each sharded parameter splits over the ranks (JAX
+#: ``_specs``): -1 a column block, -2 a row block; the others are whole.
+SHARD_DIM = {"wqkv": -1, "mlp_gate": -1, "mlp_up": -1, "lm_head": -1, "wo": -2, "mlp_down": -2}
+MEGA_WORLD_GT_1 = ("the mega backend at tensor-parallel world > 1 needs the mega builder's world "
+                   "(ROADMAP queue 1 item B, its remainder)")
+
+
+def shard(name: str, t, rank: int, world: int):
+    """Rank ``rank``'s block of the global parameter ``name``, a torch
+    tensor or numpy array (a view; the whole array for a replicated one)."""
+    dim = SHARD_DIM.get(name)
+    if dim is None or world == 1:
+        return t
+    n = t.shape[dim]
+    if n % world:
+        raise ValueError(f"{name}: dimension {dim} of {tuple(t.shape)} does not split over {world} ranks")
+    idx = [slice(None)] * t.ndim
+    idx[dim] = slice(rank * (n // world), (rank + 1) * (n // world))
+    return t[tuple(idx)]
 
 
 @dataclasses.dataclass
@@ -44,45 +73,43 @@ class DenseParams:
 
 
 def init_params(config: ModelConfig, generator: torch.Generator,
-                device: str | torch.device | None = None) -> DenseParams:
+                device: str | torch.device | None = None, *, rank: int = 0, world: int = 1) -> DenseParams:
     """Random weights with the JAX package's scales (``dense.py:84-115``):
     the embedding and the MoE router at 0.02, every other matrix at
     1/sqrt(shape[-2]) (its fan-in), norms at ones. Normals are drawn on
     ``generator``'s device one layer at a time (so a full-size model never
     holds an fp32 copy of a whole stack), scaled in fp32 and cast to the
-    model dtype."""
+    model dtype. With ``world`` > 1 every rank draws the same global tensors
+    (give each the same seed) and keeps its shard (``shard``)."""
     c = config
     device = resolve_device(device)
     dt = torch_dtype(c)
     L, d, hd = c.num_layers, c.hidden_size, c.head_dim
     qkv_cols = (c.num_q_heads + 2 * c.num_kv_heads) * hd
 
-    def normal(shape, scale):
+    def normal(shape, scale, name=None):
         x = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
-        return (x * scale).to(device=device, dtype=dt)
+        return shard(name, x * scale, rank, world).to(device=device, dtype=dt).contiguous()
 
-    def stacked(shape, scale=None):
+    def stacked(shape, scale=None, name=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
-        out = torch.empty((L, *shape), device=device, dtype=dt)
-        for i in range(L):
-            out[i] = normal(shape, scale)
+        first = normal(shape, scale, name)
+        out = torch.empty((L, *first.shape), device=device, dtype=dt)
+        out[0] = first
+        for i in range(1, L):
+            out[i] = normal(shape, scale, name)
         return out
 
     def ones(*shape):
         return torch.ones(shape, device=device, dtype=dt)
 
     embed = normal((c.vocab_size, d), 0.02)
-    wqkv = stacked((d, qkv_cols))
-    wo = stacked((c.num_q_heads * hd, d))
-    if c.is_moe:
-        e, ffe = c.num_experts, c.moe_intermediate_size
-        mlp_gate, mlp_up = stacked((e, d, ffe)), stacked((e, d, ffe))
-        mlp_down = stacked((e, ffe, d))
-        router = stacked((d, e), scale=0.02)
-    else:
-        ff = c.intermediate_size
-        mlp_gate, mlp_up, mlp_down = stacked((d, ff)), stacked((d, ff)), stacked((ff, d))
-        router = None
+    wqkv = stacked((d, qkv_cols), name="wqkv")
+    wo = stacked((c.num_q_heads * hd, d), name="wo")
+    ff_shape = (c.num_experts, d, c.moe_intermediate_size) if c.is_moe else (d, c.intermediate_size)
+    mlp_gate, mlp_up = stacked(ff_shape, name="mlp_gate"), stacked(ff_shape, name="mlp_up")
+    mlp_down = stacked((*ff_shape[:-2], ff_shape[-1], d), name="mlp_down")
+    router = stacked((d, c.num_experts), scale=0.02) if c.is_moe else None
 
     return DenseParams(
         embed=embed,
@@ -97,7 +124,7 @@ def init_params(config: ModelConfig, generator: torch.Generator,
         mlp_down=mlp_down,
         router=router,
         final_norm=ones(d),
-        lm_head=normal((d, c.vocab_size), 1.0 / math.sqrt(d)),
+        lm_head=normal((d, c.vocab_size), 1.0 / math.sqrt(d), "lm_head"),
     )
 
 
@@ -107,31 +134,40 @@ def _replicated(mode: str) -> str:
 
 
 class DenseLLM:
-    """Qwen3-style model at world 1; the MLP is ``TP_MoE`` for a MoE config
-    and ``TP_MLP`` otherwise, as in JAX. Pass ``params`` (for instance from
+    """Qwen3-style model; the MLP is ``TP_MoE`` for a MoE config and
+    ``TP_MLP`` otherwise, as in JAX. Pass ``params`` (for instance from
     ``models.weights.params_from_numpy``) or a ``generator`` for random
-    weights; ``device`` defaults to the current CUDA card."""
+    weights. ``ctx`` (``runtime.mesh.DistContext``) sets the world and the
+    device, and ``params`` are then this rank's shard; without it the model
+    is at world 1 on ``device`` (default the current CUDA card)."""
 
     def __init__(self, config: ModelConfig, params: DenseParams | None = None, *,
                  device: str | torch.device | None = None,
-                 generator: torch.Generator | None = None, world: int = 1):
+                 generator: torch.Generator | None = None, ctx=None):
         self.config = config
-        self.world = world
-        self.device = resolve_device(device)
+        self.ctx = ctx
+        self.world = 1 if ctx is None else ctx.world
+        if ctx is not None and device is not None and torch.device(device).type != ctx.device.type:
+            raise ValueError(f"device {device} differs from the context's {ctx.device}")
+        self.device = ctx.device if ctx is not None else resolve_device(device)
+        c = config
+        if c.num_q_heads % self.world or c.num_kv_heads % self.world:
+            raise ValueError(f"{c.num_q_heads} q and {c.num_kv_heads} kv heads do not split over "
+                             f"{self.world} ranks")
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
-            params = init_params(config, generator, self.device)
+            rank = 0 if ctx is None else ctx.rank
+            params = init_params(config, generator, self.device, rank=rank, world=self.world)
         self.params = params
-        c = config
         p = params
         self.layers = []
         for i in range(c.num_layers):
             attn = TP_Attn(
                 p.wqkv[i], p.wo[i],
                 RMSNorm(p.q_norm[i], c.rms_eps), RMSNorm(p.k_norm[i], c.rms_eps),
-                num_q_heads=c.num_q_heads // world, num_kv_heads=c.num_kv_heads // world,
-                head_dim=c.head_dim, rope_theta=c.rope_theta, world=world,
+                num_q_heads=c.num_q_heads // self.world, num_kv_heads=c.num_kv_heads // self.world,
+                head_dim=c.head_dim, rope_theta=c.rope_theta, ctx=ctx,
             )
             self.layers.append(
                 (RMSNorm(p.ln1[i], c.rms_eps), attn, RMSNorm(p.ln2[i], c.rms_eps), self._mlp(i))
@@ -142,8 +178,8 @@ class DenseLLM:
         c, p = self.config, self.params
         if c.is_moe:
             return TP_MoE(p.router[i], p.mlp_gate[i], p.mlp_up[i], p.mlp_down[i], top_k=c.top_k,
-                          world=self.world)
-        return TP_MLP(p.mlp_gate[i], p.mlp_up[i], p.mlp_down[i], world=self.world)
+                          ctx=self.ctx)
+        return TP_MLP(p.mlp_gate[i], p.mlp_up[i], p.mlp_down[i], ctx=self.ctx)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
@@ -153,13 +189,23 @@ class DenseLLM:
 
     @torch.no_grad()
     def prefill(self, tokens, mode: str = "dist"):
-        """tokens (B, S) → (last-token logits (B, V) fp32, stacked caches
-        ``(ks, vs)`` each (L, B, Hkv, S, D))."""
+        """tokens (B, S) → (last-token logits (B, V / world) fp32, this
+        rank's columns; stacked caches ``(ks, vs)`` each (L, B, Hkv / world,
+        S, D)). ``dist`` mode runs the layers on this rank's 1/world of the
+        B·S rows and gathers them back before the head (JAX
+        ``dense.py:189-192,217-220``); B·S must split over the ranks."""
         c = self.config
         tokens = self._tokens(tokens)
         bsz, seq = tokens.shape
         x = self.params.embed[tokens].reshape(bsz * seq, c.hidden_size)
         pos = torch.arange(seq, dtype=torch.int32, device=self.device)[None].expand(bsz, seq)
+        sharded = mode == "dist" and self.world > 1
+        if sharded:
+            if (bsz * seq) % self.world:
+                raise ValueError(f"dist prefill splits B·S = {bsz * seq} rows over {self.world} ranks: "
+                                 "not divisible")
+            chunk = bsz * seq // self.world
+            x = x[self.ctx.rank * chunk:(self.ctx.rank + 1) * chunk]
         shape = (c.num_layers, bsz, c.num_kv_heads // self.world, seq, c.head_dim)
         ks = torch.empty(shape, dtype=x.dtype, device=self.device)
         vs = torch.empty_like(ks)
@@ -170,7 +216,10 @@ class DenseLLM:
             # A MoE MLP takes "dist" (seq-sharded) or the replicated modes,
             # exactly the prefill modes (JAX dense.py:201-207).
             x = x + mlp(ln2(x), mode=mode)
-        x = self.final_norm(x).reshape(bsz, seq, -1)[:, -1]
+        x = self.final_norm(x)
+        if sharded:
+            x = all_gather(self.ctx, x, 0)
+        x = x.reshape(bsz, seq, -1)[:, -1]
         return self._logits(x), (ks, vs)
 
     @torch.no_grad()
@@ -198,7 +247,7 @@ class DenseLLM:
 
     @torch.no_grad()
     def decode(self, token, ks, vs, lengths, mode: str = "dist_ar"):
-        """token (B,) → (logits (B, V) fp32, ks, vs): one step at positions
+        """token (B,) → (logits (B, V / world) fp32, ks, vs): one step at positions
         ``lengths``; writes each layer's new K/V into ``ks``/``vs`` in place.
         ``mode="mega"`` is ``decode_mega``'s, which needs the per-layer
         parameters and the step function."""
@@ -223,6 +272,8 @@ class DenseLLM:
         kernels read the stacked weights in place and no second copy exists;
         the JAX package materialises a per-layer copy here, because a Pallas
         call cannot take a slice lazily."""
+        if self.world > 1:
+            raise NotImplementedError(MEGA_WORLD_GT_1)
         p = self.params
         fields = self._LAYER_FIELDS + (("router",) if self.config.is_moe else ())
         return [{f: getattr(p, f)[i] for f in fields} for i in range(self.config.num_layers)]
@@ -232,6 +283,8 @@ class DenseLLM:
         (``ModelBuilder.build_step_fn``, scoreboard policy), over the
         contiguous caches or, with ``paged``, the block pools; its ``plan``
         lists the lowerings."""
+        if self.world > 1:
+            raise NotImplementedError(MEGA_WORLD_GT_1)
         return ModelBuilder(self.config, paged=paged).build_step_fn(self.config.num_layers)
 
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Inference engine at world 1: counterpart of ``triton_dist_tpu/models/engine.py``
+"""Inference engine: counterpart of ``triton_dist_tpu/models/engine.py``
 (``sample_token``, ``Engine.serve``, ``alloc_slots``, ``prefill_into_slot``,
 ``decode_steps``, and the paged-KV entry points ``alloc_paged``,
 ``paged_kbuf_zeros``, ``prefill_chunk``, ``complete_paged_prefill``,
@@ -16,6 +16,15 @@ decode step one recorded task graph lowered to the fused decode kernels
 the block pool. The other backends decode a paged pool by gathering it into
 the contiguous layout, running ``decode_steps`` and scattering the chunk's
 rows back. Caches and pools are updated in place.
+
+At tensor-parallel world > 1 (a model built with a ``DistContext``) every
+rank runs this engine on its shard: caches hold its Hkv / world heads, the
+logits are gathered over the ranks before sampling (JAX
+``engine.py:176-178,277-279``), so every rank samples the same token, and
+the status word of the rank's collectives is read after each sample.
+``serve``, ``alloc_slots``, ``prefill_into_slot`` and ``decode_steps`` run
+on ``xla``, ``dist`` and ``dist_ar``; the paged entry points and ``mega``
+raise there.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 from triton_dist_tpu_torch.kernels.flash_decode import gather_paged_kv
 from triton_dist_tpu_torch.models.dense import DenseLLM
 from triton_dist_tpu_torch.models.kv_cache import NULL_BLOCK, KVCache, PagedKVCache
+from triton_dist_tpu_torch.runtime.mesh import all_gather
 
 _BACKENDS = ("xla", "dist", "dist_ar", "mega")
 # Every backend resolves in both maps. mega prefills op by op in dist_ar
@@ -39,6 +49,8 @@ PREFIX_REUSE = ("prefix reuse (paged_seed_kbuf) comes with the serving scheduler
                 "ROADMAP queue 1 item A")
 SPECULATIVE = ("speculative decoding (the drafter, spec_decode_steps and its paged twin) is "
                "ROADMAP queue 1 item C")
+PAGED_WORLD_GT_1 = ("the paged KV entry points at tensor-parallel world > 1 are ROADMAP queue 1 "
+                    "item B's remainder")
 
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
@@ -84,6 +96,7 @@ class Engine:
         self.decode_mode = DECODE_MODE[backend]
         self.chunk_mode = CHUNK_MODE[backend]
         self.kv_cache: KVCache | None = None
+        self.world = model.world
         if backend == "mega":
             # Built once: the step functions (contiguous and paged) and the
             # per-layer weight views.
@@ -96,7 +109,18 @@ class Engine:
         return self.model.device
 
     def _sample(self, logits, generator):
-        return sample_token(logits, generator, self.sample_method, self.temperature, self.top_p)
+        token = sample_token(logits, generator, self.sample_method, self.temperature, self.top_p)
+        if self.world > 1:
+            self.model.ctx.check_status()
+        return token
+
+    def _full(self, logits):
+        """(B, V) logits from this rank's (B, V / world) columns."""
+        return all_gather(self.model.ctx, logits, 1) if self.world > 1 else logits
+
+    def _check_paged_world(self) -> None:
+        if self.world > 1:
+            raise NotImplementedError(PAGED_WORLD_GT_1)
 
     def _decode(self, token, cache: KVCache, lengths):
         if self.decode_mode == "mega":
@@ -104,7 +128,7 @@ class Engine:
                                                   cache.k, cache.v, lengths)
         else:
             logits, _, _ = self.model.decode(token, cache.k, cache.v, lengths, mode=self.decode_mode)
-        return logits
+        return self._full(logits)
 
     # ------------------------------------------------------------------ kv
     def _make_cache(self, ks: torch.Tensor, vs: torch.Tensor, seq: int) -> KVCache:
@@ -124,7 +148,7 @@ class Engine:
         owning a full ``max_len`` row."""
         c = self.model.config
         return KVCache.create(
-            c.num_layers, num_slots, c.num_kv_heads, self.max_len, c.head_dim,
+            c.num_layers, num_slots, c.num_kv_heads // self.world, self.max_len, c.head_dim,
             dtype=self.model.params.embed.dtype, device=self.device,
         )
 
@@ -142,6 +166,7 @@ class Engine:
         if seq > self.max_len:
             raise ValueError(f"prompt of {seq} tokens exceeds max_len={self.max_len}")
         logits, (ks, vs) = self.model.prefill(ids, mode=self.prefill_mode)
+        logits = self._full(logits)
         cache.k[:, slot, :, :seq] = ks[:, 0]
         cache.k[:, slot, :, seq:] = 0
         cache.v[:, slot, :, :seq] = vs[:, 0]
@@ -191,6 +216,7 @@ class Engine:
         ``max_len``. Block 0 is the reserved NULL block (``BlockAllocator``
         never hands it out). The caller sets ``tables`` and ``lengths``.
         ``quant`` pools are not ported (ROADMAP queue 1 item E)."""
+        self._check_paged_world()
         c = self.model.config
         return PagedKVCache.create(
             c.num_layers, num_slots, c.num_kv_heads, c.head_dim, block_size=block_size,
@@ -201,6 +227,7 @@ class Engine:
     def paged_kbuf_zeros(self, p_len: int):
         """Zeroed (L, 1, Hkv, p_len, D) chunked-prefill context buffers, K
         and V."""
+        self._check_paged_world()
         c = self.model.config
         shape = (c.num_layers, 1, c.num_kv_heads, p_len, c.head_dim)
         dt = self.model.params.embed.dtype
@@ -219,6 +246,7 @@ class Engine:
         chunk's absolute start, ``last_idx`` the row whose logits matter
         (the prompt's last token, on the final chunk). Returns (logits
         (1, V) fp32, kbuf, vbuf)."""
+        self._check_paged_world()
         ids = torch.as_tensor(chunk_ids, device=self.device)
         logits, (kbuf, vbuf) = self.model.prefill_chunk(ids, kbuf, vbuf, int(off), int(last_idx),
                                                         mode=self.chunk_mode)
@@ -232,6 +260,7 @@ class Engine:
         ``start_block`` are prefix-shared and redirect to the NULL block
         instead of being rewritten. The pools are written in place; the
         tables and lengths are the caller's to update."""
+        self._check_paged_world()
         bs = paged.block_size
         nl, _, hkv, p_len, hd = kbuf.shape
         mbf = -(-p_len // bs)
@@ -260,6 +289,7 @@ class Engine:
         slot's rows written in this chunk back along its table, masked rows
         to the NULL block. Returns ``(out, last_tokens, paged, remaining')``;
         the pools and ``paged.lengths`` are updated in place."""
+        self._check_paged_world()
         if self.decode_mode == "mega":
             def step(tok, lens, act):
                 logits, _, _ = self.model.decode_mega_paged(
@@ -295,6 +325,7 @@ class Engine:
         if seq + gen_len > self.max_len:
             raise ValueError(f"{seq} + {gen_len} tokens exceed max_len={self.max_len}")
         logits, (ks, vs) = self.model.prefill(ids, mode=self.prefill_mode)
+        logits = self._full(logits)
         cache = self._make_cache(ks, vs, seq)
         token = self._sample(logits, generator)
         out = torch.empty((bsz, gen_len), dtype=torch.int32, device=self.device)

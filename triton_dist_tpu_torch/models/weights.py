@@ -3,8 +3,11 @@
 ``params_from_numpy`` takes the JAX parameters field by field as numpy
 arrays (``{name: np.asarray(getattr(jax_params, name))}``) and returns the
 port's ``DenseParams`` on ``device``, so both packages compute the same
-model, dense or MoE (router and 4-D expert slabs). At world 1 nothing is
-sharded, so every array is taken whole.
+model, dense or MoE (router and 4-D expert slabs). The arrays are the
+global ones; at world > 1 each rank takes its shard as JAX's ``_specs``
+places it (``dense.py:51-68``; ``models.dense.shard``): ``wqkv``,
+``mlp_gate``, ``mlp_up`` and ``lm_head`` by contiguous column blocks,
+``wo`` and ``mlp_down`` by row blocks, the rest whole.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.models.config import ModelConfig, torch_dtype
-from triton_dist_tpu_torch.models.dense import DenseParams
+from triton_dist_tpu_torch.models.dense import DenseParams, shard
 from triton_dist_tpu_torch.runtime.platform import resolve_device
 
 
@@ -29,10 +32,12 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch
 
 
 def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
-                      device: str | torch.device | None = None) -> DenseParams:
-    """The port's ``DenseParams`` from the JAX fields as numpy arrays, cast
-    to ``config.dtype``. Raises on a missing field or a shape that does not
-    fit ``config``."""
+                      device: str | torch.device | None = None, *, rank: int = 0,
+                      world: int = 1) -> DenseParams:
+    """The port's ``DenseParams`` of rank ``rank`` of ``world`` from the JAX
+    fields as global numpy arrays, cast to ``config.dtype``. Raises on a
+    missing field, a shape that does not fit ``config`` or one that does not
+    split over the ranks."""
     c = config
     device = resolve_device(device)
     dt = torch_dtype(c)
@@ -68,5 +73,5 @@ def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
         a = np.asarray(arrays[f.name])
         if a.shape != expect[f.name]:
             raise ValueError(f"{f.name}: shape {a.shape}, expected {expect[f.name]}")
-        out[f.name] = _to_tensor(a, dt, device)
+        out[f.name] = _to_tensor(shard(f.name, a, rank, world), dt, device)
     return DenseParams(**out)
