@@ -44,7 +44,18 @@ then, on the card:
    card and on the CPU inside the same ranks, tokens equal; (5c) Qwen3-8B at
    full width and depth served on ``dist`` (four slots, 32 steps, one
    ``serve``) plus one ``dist_ar`` prefill, launch counts read around that
-   run and held to the routers' prediction;
+   run and held to the routers' prediction; then, expert-parallel:
+   (5d) rows 25 (the all-to-all) and 26 (the fused dispatch, expert MLP
+   and return) against their plain versions at the Qwen3-30B-A3B world-4
+   shapes and at the edges, row 25 bitwise, row 26 bitwise equal on every
+   rank where the ranks route the same tokens, each timed beside its bound
+   and, with a card a rank, NCCL's all-to-all; (5e) the fp32 ``test-moe``
+   ``EPMoELLM`` on ``xla``, ``dist`` and ``dist_ar``, card vs CPU, tokens
+   equal and the decode's hidden states the same bits on every rank; (5f)
+   Qwen3-30B-A3B as ``EPMoELLM`` at full width and depth (32 whole experts
+   a rank) served on ``dist`` (four slots, 8 decode steps on a shared card
+   and 32 with a card a rank) plus one ``dist_ar`` prefill, launch counts
+   held to the routers' prediction;
 6. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 It exits nonzero and prints no result when CUDA is unavailable, when run
@@ -106,9 +117,18 @@ WORLD = 4
 W4_PROMPTS = (96, 384, 776, 1500)
 W4_SERVE = (2, 128, 16)
 LINK_BYTES_PER_S = 450e9
-W4_TIMEOUT_S = 700
+W4_TIMEOUT_S = 900
 #: The kernels of the multi-rank layer (rows 16-19 and the barrier).
 COLLECTIVE_KERNELS = ("ag_gemm_fused", "gemm_rs_fused", "gemm_ar_fused", "gemm_ar_ll", "barrier_all_on_device")
+# Phase 5d-5f: Qwen3-30B-A3B expert-parallel at world 4 (EPMoELLM, 32
+# experts a rank) on dist, with the 5c prompts; decode steps at B = 4 when
+# the ranks share one card, and when each has its own; the replicated
+# prefill that takes row 26 on dist_ar.
+EP_PRESET = "qwen3-moe-30b-a3b"
+EP_STEPS_SHARED, EP_STEPS_OWN = 8, 32
+EP_AR_PROMPT = 384
+#: The expert-parallel kernels (rows 25 and 26).
+EP_KERNELS = ("all_to_all_kernel", "fused_ep_kernel")
 
 
 def log(msg: str) -> None:
@@ -177,7 +197,10 @@ _MEGA_FAMILIES = (("qkv_partial", "fused_ln_qkv_rope"), ("qkv_epilogue", "fused_
 # The kernels of the multi-rank layer all take tdt::Shmem first.
 _SHMEM_FAMILIES = (("ag_push", "ag_gemm_fused"), ("ag_gemm", "ag_gemm_fused"),
                    ("partial_kernel", "rows 17-19 partials"), ("reduce_kernel", "rows 17-19 reduce"),
-                   ("gather_kernel", "gemm_ar_fused broadcast"), ("barrier_kernel", "barrier_all_on_device"))
+                   ("gather_kernel", "gemm_ar_fused broadcast"), ("barrier_kernel", "barrier_all_on_device"),
+                   ("a2a_push", "a2a push (rows 25, 26)"), ("a2a_recv", "all_to_all_kernel"),
+                   ("ep_gate_up", "fused_ep_kernel gate/up"), ("ep_down", "fused_ep_kernel down"),
+                   ("ep_combine", "fused_ep_kernel combine"))
 
 
 def _family(kernel_name: str) -> str:
@@ -928,7 +951,7 @@ def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str,
         "fused_mlp_block": layers * steps if mega and not cfg.is_moe else 0,
         "fused_norm_head": steps if mega else 0,
         "fused_moe_block": layers * steps if mega and cfg.is_moe else 0,
-        **{name: 0 for name in COLLECTIVE_KERNELS},  # world 1 runs no collective
+        **{name: 0 for name in COLLECTIVE_KERNELS + EP_KERNELS},  # world 1 runs no collective
     }
 
 
@@ -1166,6 +1189,22 @@ def rlog(ctx, msg: str) -> None:
     log(f"[rank {ctx.rank}] {msg}")
 
 
+def timed_entry(ctx, flush_buf, name, source, replaces, kernel, plain, library, cost,
+                library_name="NCCL + cuBLAS") -> dict:
+    """A collective kernel's JSON entry (without launches and error): the
+    kernel, its plain version and the yardstick (None when the ranks share
+    a card) timed by ``time_collective``, and the bound of ``cost`` (FLOPs,
+    HBM bytes, NVLink bytes)."""
+    kernel_ms = time_collective(ctx, kernel, flush_buf)
+    plain_ms = time_collective(ctx, plain, flush_buf, iters=5)
+    lib_ms = time_collective(ctx, library, flush_buf) if library is not None else None
+    b_ms, b_by = bound3_ms(*cost)
+    rlog(ctx, f"{name} timed: kernel_ms {kernel_ms}, plain_ms {plain_ms}, library_ms({library_name}) "
+         f"{lib_ms}, bound_ms {b_ms} ({b_by}; {cost[0]} FLOP, {cost[1]} HBM bytes, {cost[2]} NVLink bytes)")
+    return dict(name=name, route="cuda", source=source, replaces=replaces, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
 def check_collective_kernels(ctx, flush_buf, nccl) -> dict[str, dict]:
     """5a: rows 16-19 and the barrier against their plain versions at the
     Qwen3-8B world-4 shapes of the main path and at the edges (bf16). Every
@@ -1208,14 +1247,7 @@ def check_collective_kernels(ctx, flush_buf, nccl) -> dict[str, dict]:
     entries = {}
 
     def record(name, source, replaces, kernel, plain, library, cost):
-        kernel_ms = time_collective(ctx, kernel, flush_buf)
-        plain_ms = time_collective(ctx, plain, flush_buf, iters=5)
-        lib_ms = time_collective(ctx, library, flush_buf) if library is not None else None
-        b_ms, b_by = bound3_ms(*cost)
-        rlog(ctx, f"{name} timed: kernel_ms {kernel_ms}, plain_ms {plain_ms}, library_ms(NCCL + cuBLAS) "
-             f"{lib_ms}, bound_ms {b_ms} ({b_by}; {cost[0]} FLOP, {cost[1]} HBM bytes, {cost[2]} NVLink bytes)")
-        entries[name] = dict(name=name, route="cuda", source=source, replaces=replaces, ms=kernel_ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        entries[name] = timed_entry(ctx, flush_buf, name, source, replaces, kernel, plain, library, cost)
 
     # Row 16: AG(A) @ B and the SwiGLU pair. (label, m_shard, n, swiglu, timed)
     err16 = 0.0
@@ -1522,8 +1554,348 @@ def serve_world4(ctx) -> dict[str, int]:
     return launches
 
 
+def _routed_send(ctx, cfg, tokens: int, gen, replicated: bool = False):
+    """The slot grid the served path sends for ``tokens`` random bf16 tokens
+    a rank, routed top-k by a random router with capacity factor 2.0:
+    (world, E_local·C, d), destination-major, and C. ``replicated``: the
+    same tokens on every rank (the ``dist_ar`` route)."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
+    from triton_dist_tpu_torch.kernels.moe_utils import capacity_for, dispatch, make_routing_plan, topk_routing
+
+    d, e, w = cfg.hidden_size, cfg.num_experts, ctx.world
+    x_all = torch.randn((w, tokens, d), generator=gen, device=ctx.device).to(torch.bfloat16)
+    x = x_all[0] if replicated else x_all[ctx.rank]
+    router = (torch.randn((d, e), generator=gen, device=ctx.device) * 0.02).to(torch.bfloat16)
+    idx, _ = topk_routing(matmul_f32(x, router), cfg.top_k)
+    cap = capacity_for(tokens, cfg.top_k, e, 2.0)
+    plan = make_routing_plan(idx, e, cap)
+    return dispatch(x, plan).reshape(w, e // w * cap, d).contiguous(), cap
+
+
+def check_ep_kernels(ctx, flush_buf, nccl) -> dict[str, dict]:
+    """5d: rows 25 and 26 against their plain versions at the Qwen3-30B-A3B
+    world-4 shapes of the served path and at the edges (bf16). Row 25 must
+    equal the plain all-to-all bit for bit; row 26 is within the bf16
+    tolerance of the plain dispatch, ``group_swiglu_reference`` and ``bmm``
+    down in fp32, and return, and where every rank routes the same tokens
+    every rank gets the same bits. Each kernel is timed beside its plain
+    version, its bound and, when every rank has its own card, NCCL's
+    all-to-all (row 26: NCCL all-to-all, ``bmm``, silu·mul, ``bmm``, NCCL
+    all-to-all)."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.kernels import all_to_all_kernel, fused_ep_kernel, fused_ep_reference
+    from triton_dist_tpu_torch.kernels.ep_a2a import a2a_cost
+    from triton_dist_tpu_torch.kernels.ep_fused import fused_ep_cost
+    from triton_dist_tpu_torch.kernels.low_latency_a2a import quantize_fp8
+    from triton_dist_tpu_torch.kernels.moe_utils import regroup_by_expert, ungroup_to_peers
+    from triton_dist_tpu_torch.models import PRESETS
+    from triton_dist_tpu_torch.runtime.mesh import all_to_all
+
+    cfg = PRESETS[EP_PRESET]
+    w, dev = ctx.world, ctx.device
+    d, ff, e_local = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts // w
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)  # the same draws on every rank
+    entries = {}
+
+    # Row 25: the three legs of a decode step's low-latency route (B = 4:
+    # C = 8), then the edges.
+    send, cap = _routed_send(ctx, cfg, 4, gen)
+    q, scale = quantize_fp8(send.reshape(-1, d))
+    one, _ = _routed_send(ctx, cfg, 1, gen)
+    zero_src = torch.randn((w, 24, 64), generator=gen, device=dev).to(torch.bfloat16)
+    if ctx.rank == 1:
+        zero_src.zero_()
+    cases = (("decode fp8 payload (int8 view)", q.view(torch.int8).reshape(w, -1, d)),
+             ("decode scales", scale.reshape(w, -1, 1)), ("decode combine leg bf16", send),
+             ("T=1 combine leg", one), ("12-byte chunks", torch.randn((w, 3, 1), generator=gen, device=dev)),
+             ("all-zero source (rank 1)", zero_src))
+    for label, x in cases:
+        got = all_to_all_kernel(ctx, x)
+        plain = all_to_all(ctx, x)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.uint8), plain.view(torch.uint8)):
+            raise AssertionError(f"all_to_all_kernel {label}: differs from the plain all-to-all")
+        rlog(ctx, f"all_to_all_kernel {label} {tuple(x.shape)} {x.dtype}: bitwise equal to the plain all-to-all")
+
+    def nccl_a2a(x):
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=nccl)
+        return out
+
+    entries["all_to_all_kernel"] = timed_entry(
+        ctx, flush_buf, "all_to_all_kernel", "triton_dist_tpu_torch/csrc/ep_a2a.cu",
+        "triton_dist_tpu/kernels/ep_a2a.py:46", lambda: all_to_all_kernel(ctx, send), lambda: all_to_all(ctx, send),
+        (lambda: nccl_a2a(send)) if nccl is not None else None, a2a_cost(send, w), library_name="NCCL all_to_all")
+    entries["all_to_all_kernel"]["max_abs_err"] = 0.0
+
+    # Row 26: this rank's 32 experts at full width, random bf16.
+    wg = (torch.randn((e_local, d, ff), generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)
+    wu = (torch.randn((e_local, d, ff), generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)
+    wd = (torch.randn((e_local, ff, d), generator=gen, device=dev) * ff ** -0.5).to(torch.bfloat16)
+    err26 = 0.0
+    # (label, tokens a rank, replicated, rank whose send is all zero, timed)
+    for label, t, replicated, zero, timed in (("dist prefill S=384", 96, False, None, False),
+                                             ("dist prefill S=776", 194, False, None, False),
+                                             ("dist prefill S=1500", 375, False, None, True),
+                                             (f"dist_ar prefill S={EP_AR_PROMPT}, replicated", EP_AR_PROMPT, True,
+                                              None, False),
+                                             ("edge T=1", 1, False, None, False),
+                                             ("edge C=72", 575, False, None, False),
+                                             ("edge all-zero source (rank 2)", 96, False, 2, False)):
+        send, cap = _routed_send(ctx, cfg, t, gen, replicated)
+        if zero == ctx.rank:
+            send.zero_()
+        got = fused_ep_kernel(ctx, send, wg, wu, wd, capacity=cap)
+        plain = fused_ep_reference(ctx, send, wg, wu, wd, capacity=cap)
+        torch.cuda.synchronize()
+        err = close(got, plain, BF16_ATOL, BF16_RTOL)
+        err26 = max(err26, err)
+        same = ""
+        if replicated:
+            if not _same_on_every_rank(ctx, got):
+                raise AssertionError(f"fused_ep_kernel {label}: the ranks' outputs differ")
+            same = "; bitwise equal on every rank"
+        rlog(ctx, f"fused_ep_kernel {label} (C {cap}, E_local {e_local}, d {d}, ff {ff}): max|err| {err:.3e}{same}")
+        if timed:
+            recv = all_to_all(ctx, send).reshape(w, e_local, cap, d)
+            live = recv.abs().amax(dim=-1) > 0
+            live_rows, live_experts = int(live.sum()), int(live.any(dim=2).any(dim=0).sum())
+
+            def library(send=send, cap=cap):
+                xs = regroup_by_expert(nccl_a2a(send), w, e_local, cap)
+                y = torch.bmm(F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu), wd)
+                return nccl_a2a(ungroup_to_peers(y, w, e_local, cap).contiguous())
+
+            entries["fused_ep_kernel"] = timed_entry(
+                ctx, flush_buf, "fused_ep_kernel", "triton_dist_tpu_torch/csrc/ep_fused.cu",
+                "triton_dist_tpu/kernels/ep_fused.py:50",
+                lambda send=send, cap=cap: fused_ep_kernel(ctx, send, wg, wu, wd, capacity=cap),
+                lambda send=send, cap=cap: fused_ep_reference(ctx, send, wg, wu, wd, capacity=cap),
+                library if nccl is not None else None,
+                fused_ep_cost(w, e_local, cap, d, ff, 2, live_rows, live_experts),
+                library_name="NCCL all_to_all + bmm, silu*mul, bmm + NCCL all_to_all")
+            rlog(ctx, f"fused_ep_kernel bound counts {live_rows} live rows of {w * e_local * cap} and "
+                 f"{live_experts} live experts of {e_local}")
+    entries["fused_ep_kernel"]["max_abs_err"] = err26
+    ctx.check_status()
+    return entries
+
+
+def parity_ep_world4(ctx) -> None:
+    """5e: the fp32 ``test-moe`` ``EPMoELLM`` at world 4 with the one-sided
+    transport (rows 25 and 26), on the card and on the CPU (the plain
+    versions over gloo) inside the same ranks, on ``xla``, ``dist`` and
+    ``dist_ar``: greedy tokens equal, logits within ``FP32_LOGITS_TOL``; on
+    ``dist`` and ``dist_ar`` the decode's hidden states are the same bits on
+    every rank. Prompts of 2 x 72 tokens take row 26 (36 rows a rank in a
+    dist prefill), the slots and every decode step row 25."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import PRESETS, Engine, EPMoELLM, init_params, params_from_numpy
+    from triton_dist_tpu_torch.runtime.mesh import all_gather
+
+    cfg = PRESETS["test-moe"]
+    full = init_params(cfg, torch.Generator().manual_seed(SEED + 31), "cpu")
+    arrays = {k: None if t is None else t.numpy() for k, t in vars(full).items()}
+    cpu = ctx.on_cpu()
+
+    def model(dev, c):
+        params = params_from_numpy(arrays, cfg, dev, rank=ctx.rank, world=ctx.world, expert_parallel=True)
+        return EPMoELLM(cfg, params, ctx=c, use_pallas_a2a=True)
+
+    m_gpu, m_cpu = model(ctx.device, ctx), model("cpu", cpu)
+    ids = torch.randint(0, cfg.vocab_size, (2, 72), generator=torch.Generator().manual_seed(SEED + 32))
+    reset_launch_counts()
+    errs, tokens = [], 0
+    for backend in ("xla", "dist", "dist_ar"):
+        e_gpu, e_cpu = Engine(m_gpu, backend=backend, max_len=96), Engine(m_cpu, backend=backend, max_len=96)
+        lg_gpu = all_gather(ctx, m_gpu.prefill(ids, mode=e_gpu.prefill_mode)[0], 1)
+        lg_cpu = all_gather(cpu, m_cpu.prefill(ids, mode=e_cpu.prefill_mode)[0], 1)
+        errs.append(close(lg_gpu.cpu(), lg_cpu, FP32_LOGITS_TOL, FP32_LOGITS_TOL))
+        tok_gpu, tok_cpu = e_gpu.serve(ids, gen_len=6), e_cpu.serve(ids, gen_len=6)
+        c_gpu, c_cpu = e_gpu.alloc_slots(2), e_cpu.alloc_slots(2)
+        t_gpu, t_cpu = [], []
+        for slot, n in enumerate((72, 12)):
+            t_gpu.append(e_gpu.prefill_into_slot(c_gpu, slot, ids[slot:slot + 1, :n])[0])
+            t_cpu.append(e_cpu.prefill_into_slot(c_cpu, slot, ids[slot:slot + 1, :n])[0])
+        rem = torch.tensor([6, 3], dtype=torch.int32)
+        out_gpu, last, _, _ = e_gpu.decode_steps(c_gpu, torch.stack(t_gpu), rem, 6)
+        out_cpu = e_cpu.decode_steps(c_cpu, torch.stack(t_cpu), rem, 6)[0]
+        if not (torch.equal(tok_gpu.cpu(), tok_cpu) and torch.equal(out_gpu.cpu(), out_cpu)):
+            raise AssertionError(f"EP world 4 {backend}: CUDA and CPU tokens differ:\ncuda {tok_gpu.tolist()} "
+                                 f"{out_gpu.tolist()}\ncpu  {tok_cpu.tolist()} {out_cpu.tolist()}")
+        tokens += tok_gpu.numel() + out_gpu.numel()
+        if backend != "xla":
+            hidden = m_gpu.decode_hidden(last, c_gpu.k, c_gpu.v, c_gpu.lengths, mode=e_gpu.decode_mode)
+            if not _same_on_every_rank(ctx, hidden):
+                raise AssertionError(f"EP world 4 {backend}: the ranks' hidden states differ")
+    ctx.check_status()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    for name in EP_KERNELS:
+        if not counts.get(name):
+            raise AssertionError(f"EP world 4 fp32 parity did not launch {name}: {counts}")
+    rlog(ctx, f"parity fp32 EP world 4 (test-moe: 8 experts, 2 a rank; xla, dist, dist_ar): first logits max|err| "
+         f"{max(errs):.3e} (tol {FP32_LOGITS_TOL}); {tokens} tokens equal CUDA vs CPU; decode hidden states "
+         f"bitwise equal on every rank (dist, dist_ar); launches {counts}")
+
+
+def expected_ep_world4(cfg, world: int, dist_rows: list[int], dist_ar_rows: list[int], steps: int,
+                       batch: int) -> dict:
+    """Launches of an expert-parallel world-4 run: the attention's as in
+    ``expected_world4`` (wqkv's AG-GEMM and wo's GEMM-RS in a dist prefill,
+    wo's GEMM-AR in a dist_ar prefill and every decode step); per layer of
+    every MoE call the route of its tokens a rank: the low-latency route's
+    three all-to-alls (fp8 payload, scales, combine) and one grouped SwiGLU
+    (row 8), or one fused EP call (row 26)."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import KERNELS
+    from triton_dist_tpu_torch.kernels.allgather_gemm import AGGemmMethod, get_auto_ag_gemm_method
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmARMethod, get_auto_gemm_ar_method
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import GemmRSMethod, get_auto_gemm_rs_method
+    from triton_dist_tpu_torch.kernels.low_latency_a2a import EPMoEMethod, get_auto_ep_moe_method
+
+    layers, d = cfg.num_layers, cfg.hidden_size
+    n_qkv = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim // world
+    want = {name: 0 for name in KERNELS}
+
+    def moe(t, calls):
+        if get_auto_ep_moe_method(t, world) is EPMoEMethod.LOW_LATENCY:
+            want["all_to_all_kernel"] += 3 * layers * calls
+            want["group_gemm_swiglu"] += layers * calls
+        else:
+            want["fused_ep_kernel"] += layers * calls
+
+    plain = steps  # each step's gather of the logits
+    for m in dist_rows:
+        fused = get_auto_ag_gemm_method(m // world, d, n_qkv, torch.bfloat16, world) is AGGemmMethod.PALLAS_FUSED
+        want["ag_gemm_fused"] += layers if fused else 0
+        plain += 0 if fused else layers
+        fused = get_auto_gemm_rs_method(m, world) is GemmRSMethod.PALLAS_FUSED
+        want["gemm_rs_fused"] += layers if fused else 0
+        plain += (0 if fused else layers) + 2  # and the gathers of the rows and of the logits
+        moe(m // world, 1)
+    for m in dist_ar_rows:
+        key = "gemm_ar_fused" if get_auto_gemm_ar_method(m, world) is GemmARMethod.PALLAS_FUSED else "gemm_ar_ll"
+        want[key] += layers
+        plain += 1
+        moe(m, 1)
+    want["gemm_ar_ll"] += layers * steps
+    moe(batch, steps)
+    want["flash_attention"] = layers * (len(dist_rows) + len(dist_ar_rows))
+    want["flash_decode"] = layers * steps
+    want["barrier_all_on_device"] = 2 * plain
+    return want
+
+
+def serve_ep_world4(ctx, steps: int) -> dict[str, int]:
+    """5f: Qwen3-30B-A3B at full width and depth as ``EPMoELLM`` (bf16,
+    random weights from one seed; each rank draws every layer's global
+    expert slab and keeps its 32 whole experts) served at world 4 through
+    ``Engine(backend="dist")`` with the one-sided transport: four requests
+    into four slots, ``steps`` decode steps at B = 4, then one ``dist_ar``
+    prefill of ``EP_AR_PROMPT`` tokens (row 26 on replicated tokens). Launch
+    counts are read around exactly that run and must equal
+    ``expected_ep_world4``."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import PRESETS, Engine, EPMoELLM
+
+    cfg = PRESETS[EP_PRESET]
+    dev = ctx.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = EPMoELLM(cfg, ctx=ctx, generator=torch.Generator(device=dev).manual_seed(SEED), use_pallas_a2a=True)
+    torch.cuda.synchronize()
+    ctx.host_barrier()
+    n_params = sum(t.numel() for t in vars(model.params).values() if t is not None)
+    rlog(ctx, f"{EP_PRESET} EP world 4: {cfg.num_layers} layers, {cfg.num_experts // ctx.world} of "
+         f"{cfg.num_experts} experts a rank, {n_params / 1e9:.2f} B parameters on this rank, built in "
+         f"{time.perf_counter() - t0:.1f} s; low_latency/fused crossover {model.ep_crossover_tokens()} tokens a rank")
+    engine = Engine(model, backend="dist", max_len=MAX_LEN)
+    ar_engine = Engine(model, backend="dist_ar", max_len=MAX_LEN)
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (1, n), generator=tgen, device=dev)
+
+    warm = engine.alloc_slots(4)
+    tok, warm = engine.prefill_into_slot(warm, 0, prompt(400))
+    engine.decode_steps(warm, torch.stack([tok] * 4), torch.tensor([2, 0, 0, 0]), 2)
+    del warm
+    prompts = [prompt(n) for n in W4_PROMPTS]
+    cache = engine.alloc_slots(len(prompts))
+    ar_cache = ar_engine.alloc_slots(1)
+    torch.cuda.synchronize()
+    ctx.host_barrier()
+    reset_launch_counts()
+    ttft, tokens0 = [], []
+    for slot, ids in enumerate(prompts):
+        t0 = time.perf_counter()
+        tok, cache = engine.prefill_into_slot(cache, slot, ids)
+        tokens0.append(int(tok))
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, last, cache, rem = engine.decode_steps(
+        cache, torch.tensor(tokens0, dtype=torch.int32), torch.full((4,), steps), steps)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ar_ids = prompts[W4_PROMPTS.index(EP_AR_PROMPT)]
+    t0 = time.perf_counter()
+    ar_tok, _ = ar_engine.prefill_into_slot(ar_cache, 0, ar_ids)
+    ar_ttft = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+
+    want = expected_ep_world4(cfg, ctx.world, list(W4_PROMPTS), [EP_AR_PROMPT], steps, len(prompts))
+    if launches != want:
+        raise AssertionError(f"EP world 4: launches on the served path {launches}, expected {want}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"EP world 4 decode_steps produced tokens outside the vocabulary: {out.tolist()}")
+    want_len = [n + steps for n in W4_PROMPTS]
+    if cache.lengths.tolist() != want_len or rem.tolist() != [0] * 4:
+        raise AssertionError(f"EP world 4 slot lengths {cache.lengths.tolist()} != {want_len}")
+    hidden = model.decode_hidden(last, cache.k, cache.v, cache.lengths)
+    if not bool(torch.isfinite(hidden).all()):
+        raise AssertionError("EP world 4: non-finite hidden states")
+    if not _same_on_every_rank(ctx, hidden):
+        raise AssertionError("EP world 4: the ranks' decode hidden states differ")
+    if not _same_on_every_rank(ctx, torch.cat([out.flatten(), torch.tensor(tokens0 + [int(ar_tok)], device=dev)])):
+        raise AssertionError("EP world 4: the ranks sampled different tokens")
+    ctx.check_status()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rlog(ctx, f"{EP_PRESET} EP world 4 [dist] TTFT " + ", ".join(
+        f"prompt {n}: {t:.2f} ms" for n, t in zip(W4_PROMPTS, ttft))
+        + f"; [dist_ar] prompt {EP_AR_PROMPT}: {ar_ttft:.2f} ms (first token {int(ar_tok)}, dist gave "
+        f"{tokens0[W4_PROMPTS.index(EP_AR_PROMPT)]})")
+    rlog(ctx, f"{EP_PRESET} EP world 4 [dist] decode_steps B=4, {steps} steps: {decode_ms:.2f} ms/step "
+         f"({4 * 1e3 / decode_ms:.1f} tokens/s); peak device memory {peak:.2f} GiB on this rank")
+    rlog(ctx, f"{EP_PRESET} EP world 4 launches ({len(W4_PROMPTS)} dist prefills, 1 dist_ar prefill, {steps} "
+         f"steps): { {k: v for k, v in launches.items() if v} }, as predicted; equal on every rank")
+    for label, fn, n_steps, unprofiled in (
+            ("decode_steps B=4", lambda: engine.decode_steps(cache, last, torch.full((4,), 2), 2), 2, decode_ms),
+            (f"prefill {W4_PROMPTS[2]} tokens", lambda: model.prefill(prompts[2]), 1, ttft[2])):
+        ctx.host_barrier()
+        wall, busy, families, n_kernels = profile_window(fn)
+        if busy is None:
+            rlog(ctx, f"EP world 4 profile {label}: device time not measured (no CUDA kernels recorded)")
+            continue
+        shares = ", ".join(f"{k} {v / n_steps:.3f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+        rlog(ctx, f"EP world 4 profile {label}: profiled wall {wall / n_steps:.2f} ms/step, device busy "
+             f"{busy / n_steps:.3f} ms/step ({100 * busy / wall:.1f} %; unprofiled {unprofiled:.2f} ms/step), "
+             f"{n_kernels / n_steps:.0f} kernels/step; by family: {shares}")
+    return launches
+
+
 def _rank_main(rank: int, port: int, results) -> None:
-    """One rank of phase 5, in its own process: 5a, 5b, 5c. Any failure
+    """One rank of phase 5, in its own process: 5a-5f. Any failure
     reaches the parent as an error and a nonzero exit."""
     import traceback
 
@@ -1553,8 +1925,23 @@ def _rank_main(rank: int, port: int, results) -> None:
         t0 = time.perf_counter()
         launches = serve_world4(ctx)
         rlog(ctx, f"5c (qwen3-8b world 4): {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()  # 5c's model is gone before the EP phase loads
+        t0 = time.perf_counter()
+        flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=ctx.device)
+        entries.update(check_ep_kernels(ctx, flush_buf, nccl))
+        del flush_buf
+        gc.collect()
+        torch.cuda.empty_cache()
+        rlog(ctx, f"5d (rows 25 and 26 vs plain, timed): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        parity_ep_world4(ctx)
+        rlog(ctx, f"5e (fp32 EP parity world 4, CUDA vs CPU): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ep_launches = serve_ep_world4(ctx, EP_STEPS_SHARED if shared else EP_STEPS_OWN)
+        rlog(ctx, f"5f ({EP_PRESET} EP world 4): {time.perf_counter() - t0:.1f} s")
         ctx.host_barrier()
-        results.put((rank, "ok", {"entries": entries, "launches": launches}))
+        results.put((rank, "ok", {"entries": entries, "launches": launches, "ep_launches": ep_launches}))
         ctx.heap.close()
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
@@ -1563,11 +1950,12 @@ def _rank_main(rank: int, port: int, results) -> None:
         os._exit(1)
 
 
-def run_world4(timeout_s: float) -> tuple[dict[str, dict], dict[str, int]]:
+def run_world4(timeout_s: float) -> tuple[dict[str, dict], list[dict[str, int]]]:
     """Phase 5: four rank processes, rank r on card ``r % device_count``
     (the kernels are built already). Returns rank 0's kernel entries (the
-    max |error| over the ranks) and launch counts. Raises if any rank fails
-    or the phase outlives ``timeout_s``."""
+    max |error| over the ranks) and the launch counts of its two served
+    runs (5c, 5f). Raises if any rank fails or the phase outlives
+    ``timeout_s``."""
     import multiprocessing as mp
     import queue
     import socket
@@ -1610,12 +1998,13 @@ def run_world4(timeout_s: float) -> tuple[dict[str, dict], dict[str, int]]:
             if p.is_alive():
                 p.kill()
                 p.join()
-    if any(got[r]["launches"] != got[0]["launches"] for r in got):
-        raise AssertionError("phase 5: the ranks' launch counts differ")
+    for key in ("launches", "ep_launches"):
+        if any(got[r][key] != got[0][key] for r in got):
+            raise AssertionError(f"phase 5: the ranks' launch counts differ ({key})")
     entries = got[0]["entries"]
     for name, e in entries.items():
         e["max_abs_err"] = max(got[r]["entries"][name]["max_abs_err"] for r in got)
-    return entries, got[0]["launches"]
+    return entries, [got[0]["launches"], got[0]["ep_launches"]]
 
 
 def main() -> int:
@@ -1688,13 +2077,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     w4_entries, w4_launches = run_world4(timeout_s=W4_TIMEOUT_S)
     entries.update(w4_entries)
-    runs.append(w4_launches)
+    runs.extend(w4_launches)
     log(f"phase 5 (world 4): {time.perf_counter() - t_phase:.1f} s")
 
     # --------------------------------------------------------- 6. results
     kernels = []
     for name in ("flash_attention", "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS, "paged_flash_decode",
-                 "fused_moe_block", *COLLECTIVE_KERNELS):
+                 "fused_moe_block", *COLLECTIVE_KERNELS, *EP_KERNELS):
         e = dict(entries[name])
         e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",

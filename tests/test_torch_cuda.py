@@ -63,6 +63,8 @@ ATTN_CASES = {
     "noncausal-g2-d64": (2, 4, 2, 33, 95, 64, False, None, None),
     "offset-chunk-g4-d128": (1, 8, 2, 64, 256, 128, True, 100, 0),
     "offset-empty-rows-g4-d32": (1, 8, 2, 48, 96, 32, True, 0, 30),
+    # Qwen3-30B-A3B at world 4: 8 q heads and 1 kv head a rank
+    "causal-30b-world4-g8-hkv1-d128": (1, 8, 1, 96, 96, 128, True, None, None),
 }
 
 
@@ -93,6 +95,7 @@ DECODE_CASES = {
     "g1-d64": (3, 4, 4, 300, 64, [299, 0, 1]),
     "g2-d32": (2, 8, 4, 64, 32, [64, 33]),
     "g8-d128-len>s": (2, 16, 2, 96, 128, [96, 500]),
+    "30b-world4-g8-hkv1-d128": (4, 8, 1, 512, 128, [1, 96, 384, 512]),
 }
 
 
@@ -492,3 +495,34 @@ def test_stalled_peer_ends_in_a_named_collective_abort(cuda, tmp_path):
     for msg in got[:WORLD - 1]:
         assert msg is not None and msg.startswith("CollectiveAbort"), msg
         assert "'ar_recv'" in msg and f"rank {WORLD - 1}" in msg, msg
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_ep_kernels_world4_vs_plain(cuda_ranks, dtype):
+    """Row 25 bitwise equal to the plain all-to-all (bf16, the fp8 payload
+    as int8, the scales' 4-byte rows, 12-byte chunks, an all-zero source);
+    row 26 within tolerance of its plain version (one and two row tiles,
+    an all-zero source) and, when every rank sends the same slots, the same
+    bits on every rank; rows 16-19 at Qwen3-30B-A3B's world-4 shapes."""
+    atol, rtol = TOL[dtype]
+    got = cuda_ranks.ok("cuda_ep_kernels", dict(dtype=str(dtype).split(".")[1], seed=7, atol=atol, rtol=rtol))
+    for rank, res in enumerate(got):
+        for case, (err, within, same) in res["cases"].items():
+            assert within, f"rank {rank} {case}: max |err| {err}"
+            assert same in (None, True), f"rank {rank} {case}: the ranks' outputs differ"
+        assert res["launches"] == {"all_to_all_kernel": 6, "fused_ep_kernel": 4, "ag_gemm_fused": 2,
+                                   "gemm_rs_fused": 1, "gemm_ar_fused": 1, "gemm_ar_ll": 1}
+
+
+def test_stalled_peer_ends_the_ep_all_to_all_in_a_named_abort(cuda, tmp_path):
+    """Row 25 with a rank that never arrives ends in ``CollectiveAbort``
+    naming the all-to-all's phase and the peer."""
+    ranks = Ranks(tmp_path / "store", WORLD, device="cuda")
+    try:
+        got = ranks.ok("stall", dict(absent=WORLD - 1, timeout_s=2.0, op="a2a"))
+    finally:
+        ranks.close()
+    assert got[WORLD - 1] is None
+    for msg in got[:WORLD - 1]:
+        assert msg is not None and msg.startswith("CollectiveAbort"), msg
+        assert "'a2a_recv'" in msg and f"rank {WORLD - 1}" in msg, msg

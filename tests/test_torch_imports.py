@@ -45,6 +45,10 @@ def test_port_imports_without_jax():
     for mod in ("runtime.mesh", "shmem.symm", "kernels.allgather_gemm", "kernels.gemm_reduce_scatter",
                 "kernels.gemm_allreduce", "kernels.common_ops"):
         assert f"triton_dist_tpu_torch.{mod}" in names
+    # expert-parallel serving: the all-to-all (row 25), the low-latency
+    # route, the fused kernel (row 26), the layer and the model
+    for mod in ("kernels.ep_a2a", "kernels.low_latency_a2a", "kernels.ep_fused", "layers.ep", "models.moe"):
+        assert f"triton_dist_tpu_torch.{mod}" in names
 
 
 _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+(jax\b|triton_dist_tpu(?!_torch)\b)", re.M)
@@ -64,7 +68,7 @@ def test_no_jax_or_jax_package_imports(path):
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     from triton_dist_tpu_torch import resolve_device
-    from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Qwen3MoE, init_params
+    from triton_dist_tpu_torch.models import PRESETS, DenseLLM, EPMoELLM, Qwen3MoE, init_params
     from triton_dist_tpu_torch.runtime.mesh import initialize_distributed
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -77,6 +81,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Qwen3MoE(PRESETS["test-moe"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EPMoELLM(PRESETS["test-moe"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize_distributed(0, 4, "tcp://localhost:1")  # raises before it joins a group
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,4 +1,5 @@
-"""One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``).
+"""One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``,
+``tests/test_torch_ep.py``).
 
 Run as ``python test_torch_tp_ranks.py RANK WORLD STORE [DEVICE]``: it joins a
 ``gloo`` group through the file store STORE, on the CPU (the plain
@@ -23,9 +24,11 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.kernels import allgather_gemm as ag
+from triton_dist_tpu_torch.kernels import ep_a2a, ep_fused
 from triton_dist_tpu_torch.kernels import gemm_allreduce as ar
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
-from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, params_from_numpy
+from triton_dist_tpu_torch.kernels import low_latency_a2a as ll
+from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, EPMoELLM, params_from_numpy
 from triton_dist_tpu_torch.runtime import mesh
 
 
@@ -56,21 +59,28 @@ def matmuls(ctx, op, method, a, bs):
     return _np(ar.gemm_ar_shard(ctx, a, bs[0], method=ar.GemmARMethod(method)))
 
 
-def _model(ctx, arrays):
-    cfg = PRESETS["test-dense"]
-    params = params_from_numpy(arrays, cfg, "cpu", rank=ctx.rank, world=ctx.world)
-    return DenseLLM(cfg, params, ctx=ctx)
+def _model(ctx, arrays, ep=None):
+    """``test-dense`` as a ``DenseLLM``, or with ``ep`` set (the value of
+    ``use_pallas_a2a``) ``test-moe`` as an ``EPMoELLM``, from the global
+    arrays."""
+    if ep is None:
+        cfg = PRESETS["test-dense"]
+        return DenseLLM(cfg, params_from_numpy(arrays, cfg, "cpu", rank=ctx.rank, world=ctx.world), ctx=ctx)
+    cfg = PRESETS["test-moe"]
+    params = params_from_numpy(arrays, cfg, "cpu", rank=ctx.rank, world=ctx.world, expert_parallel=True)
+    return EPMoELLM(cfg, params, ctx=ctx, use_pallas_a2a=ep)
 
 
-def serve(ctx, arrays, backend, ids, gen_len, prompts, remaining, chunk, max_len):
-    """``serve``, the first logits of its prefill, and two slots through
-    ``prefill_into_slot`` + ``decode_steps`` on ``backend``."""
-    model = _model(ctx, arrays)
+def serve(ctx, arrays, backend, ids, gen_len, prompts, remaining, chunk, max_len, ep=None):
+    """``serve`` (none when ``gen_len`` is 0), the first logits of its
+    prefill, and two slots through ``prefill_into_slot`` + ``decode_steps``
+    on ``backend``."""
+    model = _model(ctx, arrays, ep)
     engine = Engine(model, backend=backend, max_len=max_len)
     ids = torch.tensor(ids)
     logits, _ = model.prefill(ids, mode=engine.prefill_mode)
     logits = mesh.all_gather(ctx, logits, 1)
-    served = engine.serve(ids, gen_len=gen_len)
+    served = engine.serve(ids, gen_len=gen_len) if gen_len else torch.zeros(0)
     cache = engine.alloc_slots(len(prompts))
     first = [int(engine.prefill_into_slot(cache, slot, torch.tensor([p]))[0]) for slot, p in enumerate(prompts)]
     out, last, cache, rem = engine.decode_steps(cache, torch.tensor(first, dtype=torch.int32),
@@ -134,14 +144,18 @@ def cuda_kernels(ctx, dtype, seed, atol, rtol):
     return {"cases": out, "launches": launches}
 
 
-def stall(ctx, absent, timeout_s):
-    """Every rank but ``absent`` calls the LL GEMM-AR with its waits bounded
-    by ``timeout_s``; returns what ``check_status`` raised (or None)."""
+def stall(ctx, absent, timeout_s, op="ll"):
+    """Every rank but ``absent`` calls the LL GEMM-AR (``op="ll"``) or the EP
+    all-to-all (``op="a2a"``) with its waits bounded by ``timeout_s``;
+    returns what ``check_status`` raised (or None)."""
     ctx.heap.timeout_ns = int(timeout_s * 1e9)
     if ctx.rank == absent:
         return None
-    a = torch.ones((4, 64), device=ctx.device)
-    ar.gemm_ar_ll(ctx, a, torch.ones((64, 64), device=ctx.device))
+    if op == "a2a":
+        ep_a2a.all_to_all_kernel(ctx, torch.ones((ctx.world, 8, 64), device=ctx.device))
+    else:
+        a = torch.ones((4, 64), device=ctx.device)
+        ar.gemm_ar_ll(ctx, a, torch.ones((64, 64), device=ctx.device))
     try:
         ctx.check_status()
     except Exception as e:  # noqa: BLE001 - the test reads the type and message
@@ -149,8 +163,141 @@ def stall(ctx, absent, timeout_s):
     return None
 
 
+def cuda_ep_kernels(ctx, dtype, seed, atol, rtol):
+    """Rows 25 and 26 on the card against their plain versions (the plain
+    all-to-all over the heap; plus the grouped SwiGLU and a ``bmm`` for 26)
+    at edge shapes, and rows 16-19 at Qwen3-30B-A3B's world-4 shapes (wqkv
+    shard of 1280 columns, wo shard of 1024 rows). Every rank draws every
+    rank's inputs from ``seed``. Returns, per case, the max |error|, whether
+    it is within tolerance (row 25: bitwise), and whether every rank got
+    the same bits where they must; and the launches each wrapper counted."""
+    dt = getattr(torch, dtype)
+    w, me, dev = ctx.world, ctx.rank, ctx.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def check(got, want):
+        err = (got.float() - want.float()).abs()
+        return err.max().item(), bool((err <= atol + rtol * want.float().abs()).all())
+
+    fns = (ep_a2a.all_to_all_kernel, ep_fused.fused_ep_kernel, ag.ag_gemm_fused, rs.gemm_rs_fused,
+           ar.gemm_ar_fused, ar.gemm_ar_ll)
+    before = {f.__name__: f.launches for f in fns}
+    out = {}
+    # Row 25: (label, per-rank shape, dtype, rank whose chunks are all zero)
+    for label, shape, a_dt, zero in (("bf16 (4, 256, 2048)", (256, 2048), dt, None),
+                                     ("fp8 payload as int8", (256, 2048), torch.int8, None),
+                                     ("scales (4, 256, 1)", (256, 1), torch.float32, None),
+                                     ("T=1 scales (4, 8, 1)", (8, 1), torch.float32, None),
+                                     ("12-byte chunks", (3, 1), torch.float32, None),
+                                     ("zero source", (24, 64), dt, 2)):
+        if a_dt == torch.int8:
+            x_all = torch.randint(-128, 128, (w, w, *shape), generator=gen, device=dev, dtype=torch.int8)
+        else:
+            x_all = randn(w, w, *shape, dtype=a_dt)
+        if zero is not None:
+            x_all[zero] = 0
+        x = x_all[me].contiguous()
+        got = ep_a2a.all_to_all_kernel(ctx, x)
+        plain = mesh.all_to_all(ctx, x)
+        torch.cuda.synchronize()
+        ok = torch.equal(got.view(torch.uint8), plain.view(torch.uint8)) and torch.equal(
+            got.view(torch.uint8), x_all[:, me].contiguous().view(torch.uint8))
+        out[f"a2a {label}"] = (0.0 if ok else float("inf"), ok, None)
+    # Row 26: (label, E_local, C, d, ff, replicated send, rank with an all-zero send)
+    for label, e_local, cap, d, ff, replicated, zero in (("C=8", 2, 8, 64, 48, False, None),
+                                                         ("C=72 (two row tiles)", 3, 72, 128, 96, False, None),
+                                                         ("all-zero source", 2, 16, 64, 48, False, 1),
+                                                         ("replicated", 2, 24, 128, 64, True, None)):
+        send_all = randn(w, w, e_local * cap, d)
+        if replicated:
+            send_all[:] = send_all[0].clone()
+        if zero is not None:
+            send_all[zero] = 0
+        wg = randn(w * e_local, d, ff, scale=d ** -0.5)
+        wu = randn(w * e_local, d, ff, scale=d ** -0.5)
+        wd = randn(w * e_local, ff, d, scale=ff ** -0.5)
+        sl = slice(me * e_local, (me + 1) * e_local)
+        args = (send_all[me].contiguous(), wg[sl].contiguous(), wu[sl].contiguous(), wd[sl].contiguous())
+        got = ep_fused.fused_ep_kernel(ctx, *args, capacity=cap)
+        want = ep_fused.fused_ep_reference(ctx, *args, capacity=cap)
+        torch.cuda.synchronize()
+        same = _same_on_every_rank(ctx, got) if replicated else None
+        out[f"fused_ep {label}"] = (*check(got, want), same)
+    # Rows 16-19 at Qwen3-30B-A3B's world-4 shapes (d 2048).
+    d, n_qkv, k_o = 2048, (32 + 2 * 4) * 128 // w, 32 * 128 // w
+    for m in (1, 33):
+        a_all, b_all = randn(w, m, d), randn(d, w * n_qkv, scale=d ** -0.5)
+        a, b = a_all[me].contiguous(), b_all[:, me * n_qkv:(me + 1) * n_qkv].contiguous()
+        out[f"ag wqkv m_shard={m} n={n_qkv}"] = (*check(ag.ag_gemm_fused(ctx, a, (b,)),
+                                                       ag.ag_gemm_reference(ctx, a, (b,))), None)
+    for name, fn, ref, m in (("rs", rs.gemm_rs_fused, rs.gemm_rs_reference, 132),
+                             ("ar", ar.gemm_ar_fused, ar.gemm_ar_reference, 68),
+                             ("ll", ar.gemm_ar_ll, ar.gemm_ar_reference, 4)):
+        a, b = randn(w, m, k_o)[me].contiguous(), randn(w, k_o, d, scale=(w * k_o) ** -0.5)[me].contiguous()
+        got = fn(ctx, a, b)
+        same = None if name == "rs" else _same_on_every_rank(ctx, got)
+        out[f"{name} wo k={k_o} m={m}"] = (*check(got, ref(ctx, a, b)), same)
+    ctx.check_status()
+    return {"cases": out, "launches": {f.__name__: f.launches - before[f.__name__] for f in fns}}
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.asarray(a))
+
+
+def ep_op(ctx, op, **kw):
+    """One expert-parallel function of the port on this rank's inputs
+    (numpy), its result(s) as numpy."""
+    t = {k: _t(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    if op == "a2a":
+        return _np(ep_a2a.all_to_all_single_shard(ctx, t["x"], use_pallas=t["use_pallas"]))
+    if op == "dispatch_combine":  # ep_dispatch_shard through its context-bound form
+        a2a_ctx = ep_a2a.create_all_to_all_context(ctx, t["num_experts"], t["capacity"], t["use_pallas"])
+        disp = ep_a2a.fast_all_to_all(a2a_ctx, t["x"], t["idx"])
+        y = disp.expert_inputs * t["scale"][:, None, None]
+        return {"expert_inputs": _np(disp.expert_inputs),
+                "out": _np(ep_a2a.ep_combine_shard(ctx, y, disp, t["w"], use_pallas=t["use_pallas"]))}
+    if op == "ll_dispatch_combine":
+        disp = ll.ll_dispatch_shard(ctx, t["x"], t["idx"], num_experts=t["num_experts"], capacity=t["capacity"],
+                                    use_pallas=t["use_pallas"], wire_fp8=t["wire_fp8"])
+        y = disp.expert_inputs * t["scale"][:, None, None]
+        return {"expert_inputs": _np(disp.expert_inputs),
+                "out": _np(ll.ll_combine_shard(ctx, y, disp, t["w"], use_pallas=t["use_pallas"]))}
+    weights = (t["w_router"], t["w_gate"], t["w_up"], t["w_down"])
+    moe_kw = {k: t.get(k) for k in ("num_experts", "top_k", "capacity_factor")}
+    if op == "ll_moe":
+        return _np(ll.ep_moe_ll_shard(ctx, t["x"], *weights, **moe_kw, use_pallas=t["use_pallas"],
+                                      wire_fp8=t["wire_fp8"]))
+    if op == "fused_moe":
+        return _np(ep_fused.ep_moe_fused_kernel_shard(
+            ctx, t["x"], *weights, **moe_kw, use_pallas_a2a=t["use_pallas"],
+            combine_in_kernel=t["combine_in_kernel"], wire_fp8=t["wire_fp8"]))
+    gate_up_down = weights[1:]
+    if op == "fused_mlp":
+        return _np(ep_fused.fused_dispatch_mlp_shard(ctx, t["send"], *gate_up_down, capacity=t["capacity"],
+                                                     wire_fp8=t["wire_fp8"]))
+    if op == "fused_mlp_combine":
+        return _np(ep_fused.fused_dispatch_mlp_combine_shard(ctx, t["send"], *gate_up_down, capacity=t["capacity"],
+                                                             wire_fp8=t["wire_fp8"]))
+    raise ValueError(f"unknown op {op!r}")
+
+
+def ep_mlp(ctx, arrays, layer, x, mode, use_pallas_a2a):
+    """``EPMoELLM._ep_mlp`` of ``test-moe``'s layer ``layer`` on this rank's
+    tokens x."""
+    model = _model(ctx, arrays, use_pallas_a2a)
+    p = model.params
+    lp = {"router": p.router[layer], "mlp_gate": p.mlp_gate[layer], "mlp_up": p.mlp_up[layer],
+          "mlp_down": p.mlp_down[layer]}
+    return _np(model._ep_mlp(lp, torch.from_numpy(x), mode))
+
+
 TASKS = {"collectives": collectives, "matmuls": matmuls, "serve": serve, "dist_prefill": dist_prefill,
-         "cuda_kernels": cuda_kernels, "stall": stall}
+         "cuda_kernels": cuda_kernels, "stall": stall, "ep_op": ep_op, "ep_mlp": ep_mlp,
+         "cuda_ep_kernels": cuda_ep_kernels}
 
 
 def _read(stream):

@@ -16,7 +16,9 @@ directly over a paged KV pool (``models.PagedKVCache``). The dense model
 also runs tensor-parallel over ranks that are processes (``runtime.mesh``),
 over a symmetric heap mapped with CUDA IPC (``shmem.symm``), through the
 hand-written collective matmuls (AG-GEMM, GEMM-RS, GEMM-AR and its
-low-latency twin).
+low-latency twin); ``models.EPMoELLM`` serves a MoE model expert-parallel
+over those ranks, through the hand-written one-sided all-to-all and the
+fused dispatch → expert MLP → combine kernel.
 """
 
 from triton_dist_tpu_torch.runtime.platform import resolve_device  # noqa: F401

@@ -37,6 +37,9 @@ enum Phase : uint64_t {
   PHASE_RS_RECV = 2,
   PHASE_AR_RECV = 3,
   PHASE_AR_BCAST = 4,
+  PHASE_A2A_RECV = 5,
+  PHASE_EP_DISPATCH = 6,
+  PHASE_EP_COMBINE = 7,
 };
 
 // What a collective kernel needs of the layer; passed by value.

@@ -3,6 +3,8 @@ version. Every wrapper counts its launches in ``<wrapper>.launches``."""
 
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_fused, ag_gemm_reference
 from triton_dist_tpu_torch.kernels.common_ops import barrier_all_on_device
+from triton_dist_tpu_torch.kernels.ep_a2a import all_to_all_kernel
+from triton_dist_tpu_torch.kernels.ep_fused import fused_ep_kernel, fused_ep_reference
 from triton_dist_tpu_torch.kernels.flash_attn import attention_reference, flash_attention
 from triton_dist_tpu_torch.kernels.flash_decode import (
     decode_reference,
@@ -41,6 +43,8 @@ KERNELS = {
     "gemm_ar_fused": gemm_ar_fused,
     "gemm_ar_ll": gemm_ar_ll,
     "barrier_all_on_device": barrier_all_on_device,
+    "all_to_all_kernel": all_to_all_kernel,
+    "fused_ep_kernel": fused_ep_kernel,
 }
 
 
@@ -57,7 +61,10 @@ __all__ = [
     "KERNELS",
     "ag_gemm_fused",
     "ag_gemm_reference",
+    "all_to_all_kernel",
     "barrier_all_on_device",
+    "fused_ep_kernel",
+    "fused_ep_reference",
     "gemm_ar_fused",
     "gemm_ar_ll",
     "gemm_ar_reference",

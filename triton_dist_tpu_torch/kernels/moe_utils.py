@@ -2,8 +2,8 @@
 
 Counterpart of ``triton_dist_tpu/kernels/moe_utils.py`` (``CAPACITY_ALIGN``,
 ``capacity_for``, ``RoutingPlan``, ``make_routing_plan``, ``dispatch``,
-``combine``, ``topk_routing``; the EP-only ``regroup_by_expert`` and
-``ungroup_to_peers`` are not ported yet). Top-k routing becomes a stable
+``combine``, ``topk_routing``, and the expert-parallel layouts
+``regroup_by_expert`` and ``ungroup_to_peers``). Top-k routing becomes a stable
 sort over expert ids plus a position in each expert's run; each expert has
 ``capacity`` slots and assignments past it are dropped, first come first
 served in token order. Every step is tensor code on the tokens' device, with
@@ -41,6 +41,23 @@ def capacity_for(tokens: int, topk: int, num_experts: int, factor: float = 1.25,
     """Per-expert slot count: ``int(T·K/E·factor) + 1``, aligned up."""
     c = int(tokens * topk / num_experts * factor) + 1
     return max(align, (c + align - 1) // align * align)
+
+
+def regroup_by_expert(recv: torch.Tensor, world: int, e_local: int, capacity: int) -> torch.Tensor:
+    """(world, e_local·C, d) source-major all-to-all output → (e_local,
+    world·C, d) per-expert panels: each local expert sees every source
+    rank's capacity block, in rank order."""
+    d = recv.shape[-1]
+    return (recv.reshape(world, e_local, capacity, d).transpose(0, 1)
+            .reshape(e_local, world * capacity, d))
+
+
+def ungroup_to_peers(y: torch.Tensor, world: int, e_local: int, capacity: int) -> torch.Tensor:
+    """Inverse of ``regroup_by_expert``: (e_local, world·C, d) → (world,
+    e_local·C, d), the peer-major layout of the return all-to-all."""
+    d = y.shape[-1]
+    return (y.reshape(e_local, world, capacity, d).transpose(0, 1)
+            .reshape(world, e_local * capacity, d))
 
 
 def make_routing_plan(expert_idx: torch.Tensor, num_experts: int, capacity: int) -> RoutingPlan:

@@ -13,8 +13,10 @@ At world > 1 every rank holds its shard of the parameters, as JAX's
 ``mlp_up`` and ``lm_head`` split into contiguous column blocks, ``wo`` and
 ``mlp_down`` into row blocks, the rest whole. JAX reads each rank's
 ``wqkv`` block as [q | k | v] of its own heads, so on the same global arrays
-the world-4 model is not the world-1 model. The MoE layers and the mega
-backend at world > 1 are not ported and raise.
+the world-4 model is not the world-1 model. ``TP_MoE`` and the mega
+backend at world > 1 are not ported and raise; the expert-parallel MoE
+model is ``models.moe.EPMoELLM`` (its slabs by whole experts,
+``EP_SHARD_DIM``).
 """
 
 from __future__ import annotations
@@ -35,14 +37,19 @@ from triton_dist_tpu_torch.runtime.platform import resolve_device
 #: The dimension each sharded parameter splits over the ranks (JAX
 #: ``_specs``): -1 a column block, -2 a row block; the others are whole.
 SHARD_DIM = {"wqkv": -1, "mlp_gate": -1, "mlp_up": -1, "lm_head": -1, "wo": -2, "mlp_down": -2}
+#: The expert-parallel placement (JAX ``models/moe.py:ep_specs``): the MoE
+#: expert slabs split on their expert dimension, whole experts per rank.
+EP_SHARD_DIM = {**SHARD_DIM, "mlp_gate": -3, "mlp_up": -3, "mlp_down": -3}
 MEGA_WORLD_GT_1 = ("the mega backend at tensor-parallel world > 1 needs the mega builder's world "
                    "(ROADMAP queue 1 item B, its remainder)")
 
 
-def shard(name: str, t, rank: int, world: int):
+def shard(name: str, t, rank: int, world: int, expert_parallel: bool = False):
     """Rank ``rank``'s block of the global parameter ``name``, a torch
-    tensor or numpy array (a view; the whole array for a replicated one)."""
-    dim = SHARD_DIM.get(name)
+    tensor or numpy array (a view; the whole array for a replicated one).
+    ``expert_parallel``: the MoE expert slabs by whole experts
+    (``EP_SHARD_DIM``) instead of by ff columns and rows."""
+    dim = (EP_SHARD_DIM if expert_parallel else SHARD_DIM).get(name)
     if dim is None or world == 1:
         return t
     n = t.shape[dim]
@@ -73,14 +80,16 @@ class DenseParams:
 
 
 def init_params(config: ModelConfig, generator: torch.Generator,
-                device: str | torch.device | None = None, *, rank: int = 0, world: int = 1) -> DenseParams:
+                device: str | torch.device | None = None, *, rank: int = 0, world: int = 1,
+                expert_parallel: bool = False) -> DenseParams:
     """Random weights with the JAX package's scales (``dense.py:84-115``):
     the embedding and the MoE router at 0.02, every other matrix at
     1/sqrt(shape[-2]) (its fan-in), norms at ones. Normals are drawn on
     ``generator``'s device one layer at a time (so a full-size model never
     holds an fp32 copy of a whole stack), scaled in fp32 and cast to the
     model dtype. With ``world`` > 1 every rank draws the same global tensors
-    (give each the same seed) and keeps its shard (``shard``)."""
+    (give each the same seed) and keeps its shard (``shard``; with
+    ``expert_parallel``, whole experts)."""
     c = config
     device = resolve_device(device)
     dt = torch_dtype(c)
@@ -89,7 +98,7 @@ def init_params(config: ModelConfig, generator: torch.Generator,
 
     def normal(shape, scale, name=None):
         x = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
-        return shard(name, x * scale, rank, world).to(device=device, dtype=dt).contiguous()
+        return shard(name, x * scale, rank, world, expert_parallel).to(device=device, dtype=dt).contiguous()
 
     def stacked(shape, scale=None, name=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
@@ -141,6 +150,9 @@ class DenseLLM:
     device, and ``params`` are then this rank's shard; without it the model
     is at world 1 on ``device`` (default the current CUDA card)."""
 
+    #: Whether the MoE expert slabs are sharded by whole experts.
+    expert_parallel = False
+
     def __init__(self, config: ModelConfig, params: DenseParams | None = None, *,
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None, ctx=None):
@@ -158,7 +170,8 @@ class DenseLLM:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             rank = 0 if ctx is None else ctx.rank
-            params = init_params(config, generator, self.device, rank=rank, world=self.world)
+            params = init_params(config, generator, self.device, rank=rank, world=self.world,
+                                 expert_parallel=self.expert_parallel)
         self.params = params
         p = params
         self.layers = []
@@ -253,13 +266,20 @@ class DenseLLM:
         parameters and the step function."""
         if mode == "mega":
             raise ValueError("mega decode needs per-layer params and a step function: use decode_mega")
+        return self._logits(self.decode_hidden(token, ks, vs, lengths, mode)), ks, vs
+
+    @torch.no_grad()
+    def decode_hidden(self, token, ks, vs, lengths, mode: str = "dist_ar") -> torch.Tensor:
+        """``decode`` up to the head: the final-normed hidden states (B, d),
+        replicated over the ranks (the same bits on every rank where the
+        collectives reduce in rank order)."""
         token = self._tokens(token)
         x = self.params.embed[token]
         for i, (ln1, attn, ln2, mlp) in enumerate(self.layers):
             a, _ = attn.decode(ln1(x), lengths, ks[i], vs[i], lengths, mode=mode)
             x = x + a
             x = x + mlp(ln2(x), mode=_replicated(mode))  # JAX dense.py:355-358
-        return self._logits(self.final_norm(x)), ks, vs
+        return self.final_norm(x)
 
     # -- the mega backend ---------------------------------------------------
 

@@ -7,7 +7,8 @@
 PyTorch runs eagerly, so where JAX jit-compiles one program per shape and
 loops on the device with ``fori_loop``, this engine calls the model step by
 step from a Python loop (CUDA graphs are later work). The model is a
-``DenseLLM`` or a ``Qwen3MoE``; the engine does not look at its MLP. The
+``DenseLLM``, a ``Qwen3MoE`` or an ``EPMoELLM`` (``models/moe.py``, whole
+experts per rank); the engine does not look at its MLP. The
 backends ``xla``, ``dist`` and ``dist_ar`` are ported (at world 1 the
 dense layers compute the same in each; the MoE layers' ``xla`` mode uses
 plain grouped GEMMs), and ``mega``: prefill in ``dist_ar`` mode, every
@@ -24,7 +25,8 @@ logits are gathered over the ranks before sampling (JAX
 the status word of the rank's collectives is read after each sample.
 ``serve``, ``alloc_slots``, ``prefill_into_slot`` and ``decode_steps`` run
 on ``xla``, ``dist`` and ``dist_ar``; the paged entry points and ``mega``
-raise there.
+raise there. ``mega`` raises for an ``EPMoELLM`` at any world (its MoE
+lowering waits for the mega builder's ``moe_impl`` hook).
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ model, dense or MoE (router and 4-D expert slabs). The arrays are the
 global ones; at world > 1 each rank takes its shard as JAX's ``_specs``
 places it (``dense.py:51-68``; ``models.dense.shard``): ``wqkv``,
 ``mlp_gate``, ``mlp_up`` and ``lm_head`` by contiguous column blocks,
-``wo`` and ``mlp_down`` by row blocks, the rest whole.
+``wo`` and ``mlp_down`` by row blocks, the rest whole; with
+``expert_parallel`` the expert slabs by whole experts instead.
 """
 
 from __future__ import annotations
@@ -33,12 +34,16 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch
 
 def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
                       device: str | torch.device | None = None, *, rank: int = 0,
-                      world: int = 1) -> DenseParams:
+                      world: int = 1, expert_parallel: bool = False) -> DenseParams:
     """The port's ``DenseParams`` of rank ``rank`` of ``world`` from the JAX
-    fields as global numpy arrays, cast to ``config.dtype``. Raises on a
-    missing field, a shape that does not fit ``config`` or one that does not
-    split over the ranks."""
+    fields as global numpy arrays, cast to ``config.dtype``. With
+    ``expert_parallel`` (a MoE config; JAX ``load_hf_weights(...,
+    expert_parallel=True)``) each rank keeps whole experts of the expert
+    slabs (``EP_SHARD_DIM``). Raises on a missing field, a shape that does
+    not fit ``config`` or one that does not split over the ranks."""
     c = config
+    if expert_parallel and not c.is_moe:
+        raise ValueError("expert_parallel needs a MoE config")
     device = resolve_device(device)
     dt = torch_dtype(c)
     L, d, hd, V = c.num_layers, c.hidden_size, c.head_dim, c.vocab_size
@@ -73,5 +78,5 @@ def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
         a = np.asarray(arrays[f.name])
         if a.shape != expect[f.name]:
             raise ValueError(f"{f.name}: shape {a.shape}, expected {expect[f.name]}")
-        out[f.name] = _to_tensor(shard(f.name, a, rank, world), dt, device)
+        out[f.name] = _to_tensor(shard(f.name, a, rank, world, expert_parallel), dt, device)
     return DenseParams(**out)

@@ -10,9 +10,10 @@ symmetric heap (``shmem/symm.py``). Rank r takes card ``r %
 torch.cuda.device_count()``, so four ranks may own four cards or share one.
 No NCCL is used.
 
-``all_gather``, ``psum``, ``psum_scatter`` and ``ring_ag_chunks`` stand in
-for XLA's collectives (the ``xla`` mode and the small-M routes of the
-collective matmuls). CPU tensors go through ``gloo``. CUDA tensors go
+``all_gather``, ``psum``, ``psum_scatter``, ``all_to_all`` and
+``ring_ag_chunks`` stand in for XLA's collectives (the ``xla`` mode, the
+small-M routes of the collective matmuls and the expert-parallel
+all-to-all's plain transport). CPU tensors go through ``gloo``. CUDA tensors go
 through the heap: copy into this rank's plain slot, the barrier kernel,
 copies from every rank's slot, the barrier again. ``psum`` adds the parts
 in rank order 0..world-1, so every rank holds the same bits.
@@ -132,6 +133,41 @@ def psum_scatter(ctx: DistContext, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{m} rows do not split over {ctx.world} ranks")
     c = m // ctx.world
     return _ordered_sum(_parts(ctx, x, (ctx.rank * c, (ctx.rank + 1) * c)))
+
+
+def all_to_all(ctx: DistContext, x: torch.Tensor) -> torch.Tensor:
+    """Exchange per-peer chunks: x (world, chunk, ...) with ``x[p]`` bound for
+    rank p; returns ``out`` of the same shape with ``out[p]`` = rank p's
+    ``x[me]`` (``lax.all_to_all(x, axis, 0, 0, tiled=False)``). Any dtype: it
+    moves bytes. On CUDA a call larger than the plain slot goes in pieces
+    along the chunk dimension, each a round of publish, barrier, copy,
+    barrier."""
+    if x.dim() < 2 or x.shape[0] != ctx.world:
+        raise ValueError(f"all_to_all needs ({ctx.world}, chunk, ...), got {tuple(x.shape)}")
+    if ctx.device.type == "cpu":
+        return _parts(ctx, x, (ctx.rank, ctx.rank + 1))[:, 0].clone()
+    if x.device != ctx.device:
+        raise ValueError(f"tensor on {x.device}, context on {ctx.device}")
+    from triton_dist_tpu_torch.kernels.common_ops import barrier_all_on_device
+
+    heap, w, me = ctx.heap, ctx.world, ctx.rank
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    chunk = x.shape[1]
+    row_bytes = x[0, 0].numel() * x.element_size()
+    step = PLAIN_BYTES // max(w * row_bytes, 1)
+    if step < 1:
+        raise ValueError(f"all_to_all: one row of {row_bytes} bytes per rank exceeds the plain slot "
+                         f"({PLAIN_BYTES} bytes)")
+    for c0 in range(0, chunk, step):
+        c1 = min(chunk, c0 + step)
+        piece = x[:, c0:c1].contiguous()
+        nbytes = (c1 - c0) * row_bytes
+        heap.copy(heap.ptr(heap.plain_off), piece.data_ptr(), w * nbytes)
+        barrier_all_on_device(ctx)
+        for r in range(w):
+            heap.copy(out[r, c0:c1].data_ptr(), heap.ptr(heap.plain_off, r) + me * nbytes, nbytes)
+        barrier_all_on_device(ctx)
+    return out
 
 
 def ring_ag_chunks(ctx: DistContext, x: torch.Tensor):
