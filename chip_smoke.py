@@ -20,7 +20,10 @@ then, on the card:
    ``test-moe`` MoE model on ``dist`` and ``mega``, and through the paged
    pool ``test-moe`` and ``test-dense`` on ``mega`` and ``test-dense`` on
    ``dist`` (fp32) through ``Engine`` on CUDA and on the CPU (plain
-   versions) and requires equal greedy tokens and close logits;
+   versions) and requires equal greedy tokens and close logits; then every
+   attention autograd function of ``triton_dist_tpu_torch.function`` and
+   one ``test-dense`` attention-block SGD step (dense and packed), fp32,
+   gradients on the card against the CPU's;
 4. serves Qwen3-8B at full width and depth (36 layers, bf16, random weights
    from a seeded generator): four requests joined into four slots with
    ``prefill_into_slot`` and decoded together with ``decode_steps``, plus one
@@ -55,8 +58,17 @@ then, on the card:
    Qwen3-30B-A3B as ``EPMoELLM`` at full width and depth (32 whole experts
    a rank) served on ``dist`` (four slots, 8 decode steps on a shared card
    and 32 with a card a rank) plus one ``dist_ar`` prefill, launch counts
-   held to the routers' prediction;
-6. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+   held to the routers' prediction; (5g) training at world 4: tutorial 09's
+   TP MLP (``ag_gemm_fn``, ``gemm_rs_fn``), the causal ring
+   (``ring_attention_fn``) and the EP MoE (``ep_moe_fused_fn``) at full
+   width, each first at a small fp32 size card vs CPU, then two SGD steps
+   with the loss falling, replicated gradients the same bits on every rank
+   and the launch counts as predicted;
+6. trains Qwen3-8B's attention block at world 1 (embed, RMSNorm, wqkv,
+   RoPE, ``flash_attention_fn``, wo; B 1, S 4096, bf16): three SGD steps,
+   then three through ``flash_attention_varlen_fn`` on a packed batch, the
+   loss falling at every step and the counts as predicted;
+7. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 It exits nonzero and prints no result when CUDA is unavailable, when run
 away from the repository, or when any phase fails.
@@ -66,6 +78,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -129,6 +142,21 @@ EP_STEPS_SHARED, EP_STEPS_OWN = 8, 32
 EP_AR_PROMPT = 384
 #: The expert-parallel kernels (rows 25 and 26).
 EP_KERNELS = ("all_to_all_kernel", "fused_ep_kernel")
+# The training path (phases 2, 6 and 5g): Qwen3-8B's attention at B 1, S
+# 4096, and the same 4096 tokens packed as sequences of 512, 1024, 1536 and
+# 1000 with a padding tail of 24; SGD steps at world 1 and at world 4 (the
+# TP MLP on 512 tokens a rank, the ring over 4 x 1024 tokens, the EP MoE at
+# Qwen3-30B-A3B's width on 256 tokens a rank). SGD's rate is set once per
+# tensor from the first step so that it moves the tensor by 1 % of its norm,
+# which a bf16 weight keeps.
+TRAIN_S = 4096
+TRAIN_CU = (0, 512, 1536, 3072, 4072)
+TRAIN_STEPS, TRAIN_STEPS_W4 = 3, 2
+TRAIN_MLP_TOKENS, TRAIN_RING_TOKENS, TRAIN_EP_TOKENS = 512, 1024, 256
+SGD_STEP = 0.01
+FP32_KERNEL_TOL = 1e-4  # fp32 SIMT kernels vs fp32 plain versions, another summation order
+#: The training kernels (rows 4, 5 and 6).
+TRAIN_KERNELS = ("flash_attention_varlen", "flash_attention_bwd", "flash_attention_varlen_bwd")
 
 
 def log(msg: str) -> None:
@@ -186,6 +214,14 @@ def close(got, want, atol, rtol) -> float:
     return err.max().item()
 
 
+def close_scaled(got, want, tol) -> float:
+    """``close`` on both tensors divided by max|want|: for gradients of a
+    mean, whose scale says nothing about the tolerance. Returns the scaled
+    max |error|."""
+    scale = max(want.float().abs().max().item(), 1e-30)
+    return close(got.float() / scale, want.float() / scale, tol, tol)
+
+
 _GEMM_WORDS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
 
 
@@ -210,6 +246,8 @@ def _family(kernel_name: str) -> str:
             return family
     if "flash_fwd" in kernel_name:
         return "flash_attention"
+    if "flash_bwd" in kernel_name:
+        return "flash_attention_bwd"
     if "flash_decode" in kernel_name:
         return "flash_decode"
     if "group_swiglu" in kernel_name:
@@ -650,6 +688,214 @@ def check_paged_moe_kernels(dev, flush_buf) -> dict[str, dict]:
     return entries
 
 
+# ------------------------------- 2b. the training kernels vs plain versions
+
+def _sgd_rates(params, sq_norms=None) -> list[float]:
+    """SGD's rate for each tensor, set once from the first step's gradient
+    so that the step moves the tensor by ``SGD_STEP`` of its norm.
+    ``sq_norms`` maps the per-tensor (|w|², |g|²) to their global values (a
+    sum over the ranks for a sharded tensor)."""
+    import torch
+
+    sq = torch.stack([torch.stack([p.detach().float().pow(2).sum(), p.grad.float().pow(2).sum()]) for p in params])
+    if sq_norms is not None:
+        sq = sq_norms(sq)
+    return [SGD_STEP * math.sqrt(w / g) for w, g in sq.tolist()]
+
+
+def _sgd(params, rates) -> None:
+    import torch
+
+    with torch.no_grad():
+        for p, lr in zip(params, rates):
+            p.sub_((lr * p.grad.float()).to(p.dtype))
+            p.grad = None
+
+
+def _check_grads(got, want, atol, rtol) -> float:
+    return max(close(g, w, atol, rtol) for g, w in zip(got, want))
+
+
+def check_training_kernels(dev, flush_buf) -> dict[str, dict]:
+    """Phase 2, the training path: rows 4, 5 and 6 against their plain
+    versions at the shapes of phase 6 (Qwen3-8B's attention, bf16, S 4096;
+    the packed batch of ``TRAIN_CU``) and at the edges (Sq < Sk, a nonzero
+    LSE cotangent, a ring step that sees no key, D 64 and 32, fp32), each
+    timed beside its bound, its plain version and the yardstick: SDPA
+    forward and backward through autograd (rows 1 + 5) and SDPA with an
+    explicit block-diagonal causal mask (rows 4 + 6); the port calls
+    neither."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.kernels import (
+        attention_bwd_reference,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_varlen,
+        flash_attention_varlen_bwd,
+        varlen_bwd_reference,
+        varlen_reference,
+    )
+    from triton_dist_tpu_torch.kernels.flash_attn import (
+        NEG_INF,
+        _varlen_mask,
+        attention_bwd_bytes,
+        attention_bwd_flops,
+        attention_bytes,
+        attention_flops,
+        varlen_flops,
+    )
+    from triton_dist_tpu_torch.models import PRESETS
+
+    cfg = PRESETS["qwen3-8b"]
+    hq, hkv, d, s = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim, TRAIN_S
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def tols(dtype):
+        return (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (FP32_KERNEL_TOL, FP32_KERNEL_TOL)
+
+    entries, errs = {}, {name: 0.0 for name in ("flash_attention_varlen", "flash_attention_bwd",
+                                                "flash_attention_varlen_bwd")}
+
+    # Rows 1 + 5 at the served shape.
+    q, k, v, do = randn(1, hq, s, d), randn(1, hkv, s, d), randn(1, hkv, s, d), randn(1, hq, s, d)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = attention_bwd_reference(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    errs["flash_attention_bwd"] = _check_grads(got, want, BF16_ATOL, BF16_RTOL)
+    del got, want
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, return_lse=True), flush_buf)
+    kernel_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), flush_buf)
+    plain_ms = time_ms(lambda: attention_bwd_reference(q, k, v, o, lse, do), flush_buf, iters=3, warmup=1)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), flush_buf)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True), (qr, kr, vr), do), flush_buf)
+    del out
+    fwd_flops = attention_flops(1, hq, s, s, d, causal=True)
+    b_ms, b_by = bound_ms(attention_bwd_flops(fwd_flops), attention_bwd_bytes(q, k, v))
+    fb_ms, _ = bound_ms(fwd_flops, attention_bytes(q, k, v, return_lse=True))
+    log(f"flash_attention_bwd causal B=1 Hq={hq} Hkv={hkv} S={s} D={d} bf16: max|grad err| "
+        f"{errs['flash_attention_bwd']:.3e}; kernel_ms {kernel_ms}, plain_ms {plain_ms}, library_ms(SDPA backward "
+        f"through autograd) {lib_bwd_ms}, bound_ms {b_ms} ({b_by}); rows 1 + 5 kernel_ms {fwd_ms + kernel_ms} "
+        f"(forward {fwd_ms}, bound {fb_ms}) vs SDPA forward + backward {lib_ms}")
+    entries["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda", source="triton_dist_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="triton_dist_tpu/kernels/flash_attn.py:559", ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_bwd_ms)
+    del q, k, v, do, o, lse, qr, kr, vr
+
+    # Rows 4 + 6 at the packed batch.
+    cu = list(TRAIN_CU)
+    q, k, v, do = randn(hq, s, d), randn(hkv, s, d), randn(hkv, s, d), randn(hq, s, d)
+    dlse = torch.randn((hq, s), generator=gen, device=dev)
+    o, lse = flash_attention_varlen(q, k, v, cu, return_lse=True)
+    want_o, want_lse = varlen_reference(q, k, v, cu, return_lse=True)
+    torch.cuda.synchronize()
+    empty = want_lse == NEG_INF
+    if not (torch.equal(lse[empty], want_lse[empty]) and not bool(o[empty].any())):
+        raise AssertionError("flash_attention_varlen: padding rows are not o = 0, lse = NEG_INF")
+    errs["flash_attention_varlen"] = close(o, want_o, BF16_ATOL, BF16_RTOL)
+    close(lse[~empty], want_lse[~empty], LSE_ATOL, 0.0)
+    got = flash_attention_varlen_bwd(q, k, v, o, lse, do, cu, dlse=dlse)
+    want = varlen_bwd_reference(q, k, v, o, lse, do, cu, dlse=dlse)
+    torch.cuda.synchronize()
+    errs["flash_attention_varlen_bwd"] = _check_grads(got, want, BF16_ATOL, BF16_RTOL)
+    del got, want, want_o, want_lse
+    mask = _varlen_mask(cu, s, None, None, dev) | torch.eye(s, dtype=torch.bool, device=dev)  # no empty rows
+    qb, kb, vb = q[None], k[None], v[None]
+    v_ms = {}
+    v_ms["fwd"] = time_ms(lambda: flash_attention_varlen(q, k, v, cu, return_lse=True), flush_buf)
+    v_ms["fwd_plain"] = time_ms(lambda: varlen_reference(q, k, v, cu, return_lse=True), flush_buf, iters=3,
+                                warmup=1)
+    v_ms["fwd_lib"] = time_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, enable_gqa=True),
+                              flush_buf)
+    v_ms["bwd"] = time_ms(lambda: flash_attention_varlen_bwd(q, k, v, o, lse, do, cu, dlse=dlse), flush_buf)
+    v_ms["bwd_plain"] = time_ms(lambda: varlen_bwd_reference(q, k, v, o, lse, do, cu, dlse=dlse), flush_buf,
+                                iters=3, warmup=1)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (qb, kb, vb))
+    out = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask, enable_gqa=True)
+    v_ms["bwd_lib"] = time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do[None], retain_graph=True), flush_buf)
+    del out, qr, kr, vr, mask
+    vf = varlen_flops(cu, s, hq, d)
+    fb_ms, fb_by = bound_ms(vf, attention_bytes(qb, kb, vb, return_lse=True))
+    bb_ms, bb_by = bound_ms(attention_bwd_flops(vf), attention_bwd_bytes(q, k, v))
+    log(f"flash_attention_varlen Hq={hq} Hkv={hkv} T={s} cu_seqlens {cu} D={d} bf16: max|o err| "
+        f"{errs['flash_attention_varlen']:.3e}; kernel_ms {v_ms['fwd']}, plain_ms {v_ms['fwd_plain']}, "
+        f"library_ms(SDPA, block-diagonal causal mask) {v_ms['fwd_lib']}, bound_ms {fb_ms} ({fb_by}; {vf} FLOP)")
+    log(f"flash_attention_varlen_bwd same shapes, nonzero dlse: max|grad err| "
+        f"{errs['flash_attention_varlen_bwd']:.3e}; kernel_ms {v_ms['bwd']}, plain_ms {v_ms['bwd_plain']}, "
+        f"library_ms(SDPA backward, same mask) {v_ms['bwd_lib']}, bound_ms {bb_ms} ({bb_by})")
+    entries["flash_attention_varlen"] = dict(
+        name="flash_attention_varlen", route="cuda", source="triton_dist_tpu_torch/csrc/flash_attn.cu",
+        replaces="triton_dist_tpu/kernels/flash_attn.py:333", ms=v_ms["fwd"], plain_ms=v_ms["fwd_plain"],
+        bound_ms=fb_ms, bound_by=fb_by, library_ms=v_ms["fwd_lib"])
+    entries["flash_attention_varlen_bwd"] = dict(
+        name="flash_attention_varlen_bwd", route="cuda", source="triton_dist_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="triton_dist_tpu/kernels/flash_attn.py:905", ms=v_ms["bwd"], plain_ms=v_ms["bwd_plain"],
+        bound_ms=bb_ms, bound_by=bb_by, library_ms=v_ms["bwd_lib"])
+    del q, k, v, do, o, lse, dlse
+
+    # Edges: (label, dtype, hq, hkv, sq, sk, d, offsets, dlse) for rows 1 + 5.
+    for label, dtype, eq, ekv, sq, sk, ed, offs, with_dlse in (
+            ("Sq<Sk end-aligned", torch.bfloat16, hq, hkv, 512, 1024, d, {}, False),
+            ("ring step, dlse", torch.bfloat16, hq, hkv, 1024, 1024, d, dict(q_offset=2048, kv_offset=1024), True),
+            ("ring step that sees no key", torch.bfloat16, hq, hkv, 1024, 1024, d,
+             dict(q_offset=0, kv_offset=1024), True),
+            ("D 64", torch.bfloat16, 16, 4, 1000, 1000, 64, {}, True),
+            ("D 32", torch.bfloat16, 16, 2, 777, 777, 32, {}, False),
+            ("fp32", torch.float32, 8, 2, 300, 300, d, dict(q_offset=40, kv_offset=0), True)):
+        q, k, v = randn(1, eq, sq, ed, dtype=dtype), randn(1, ekv, sk, ed, dtype=dtype), randn(1, ekv, sk, ed, dtype=dtype)
+        do = randn(1, eq, sq, ed, dtype=dtype)
+        dlse = torch.randn((1, eq, sq), generator=gen, device=dev) if with_dlse else None
+        o, lse = flash_attention(q, k, v, return_lse=True, **offs)
+        got = flash_attention_bwd(q, k, v, o, lse, do, dlse=dlse, **offs)
+        want = attention_bwd_reference(q, k, v, o, lse, do, dlse=dlse, **offs)
+        torch.cuda.synchronize()
+        err = _check_grads(got, want, *tols(dtype))
+        if "no key" in label and any(bool(g.any()) for g in got):
+            raise AssertionError("flash_attention_bwd: a step that sees no key has nonzero gradients")
+        if dtype == torch.bfloat16:
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
+        log(f"flash_attention_bwd edge {label} (Hq={eq} Hkv={ekv} Sq={sq} Sk={sk} D={ed} {offs}): "
+            f"max|grad err| {err:.3e}")
+    # Edges of rows 4 + 6: (label, dtype, hq, hkv, t, d, global cu_seqlens, offsets)
+    for label, dtype, eq, ekv, t, ed, ecu, offs in (
+            ("ring step, D 64", torch.bfloat16, 16, 4, 1024, 64, [0, 300, 1200, 1900],
+             dict(q_offset=1024, kv_offset=512)),
+            ("ring step that sees no key", torch.bfloat16, 16, 4, 1024, 64, [0, 300, 1200, 1900],
+             dict(q_offset=0, kv_offset=1024)),
+            ("D 32, padding", torch.bfloat16, 16, 2, 1000, 32, [0, 1, 400, 990], {}),
+            ("fp32", torch.float32, 8, 2, 300, d, [0, 100, 101, 290], {})):
+        q, k, v = randn(eq, t, ed, dtype=dtype), randn(ekv, t, ed, dtype=dtype), randn(ekv, t, ed, dtype=dtype)
+        do = randn(eq, t, ed, dtype=dtype)
+        dlse = torch.randn((eq, t), generator=gen, device=dev)
+        o, lse = flash_attention_varlen(q, k, v, ecu, return_lse=True, **offs)
+        want_o = varlen_reference(q, k, v, ecu, **offs)
+        got = flash_attention_varlen_bwd(q, k, v, o, lse, do, ecu, dlse=dlse, **offs)
+        want = varlen_bwd_reference(q, k, v, o, lse, do, ecu, dlse=dlse, **offs)
+        torch.cuda.synchronize()
+        err_o = close(o, want_o, *tols(dtype))
+        err = _check_grads(got, want, *tols(dtype))
+        if "no key" in label and any(bool(g.any()) for g in got):
+            raise AssertionError("flash_attention_varlen_bwd: a step that sees no key has nonzero gradients")
+        if dtype == torch.bfloat16:
+            errs["flash_attention_varlen"] = max(errs["flash_attention_varlen"], err_o)
+            errs["flash_attention_varlen_bwd"] = max(errs["flash_attention_varlen_bwd"], err)
+        log(f"flash_attention_varlen(+_bwd) edge {label} (Hq={eq} Hkv={ekv} T={t} D={ed} cu {ecu} {offs}): "
+            f"max|o err| {err_o:.3e}, max|grad err| {err:.3e}")
+    for name, err in errs.items():
+        entries[name]["max_abs_err"] = err
+    log(f"card during phase 2 training kernels (clocks.sm, power.draw, temperature): {smi_sample()}")
+    return entries
+
+
 # ------------------------------------- 3. parity: CUDA vs CPU, small fp32
 
 def parity_fp32(dev) -> None:
@@ -780,6 +1026,73 @@ def parity_fp32(dev) -> None:
         log(f"parity fp32 {preset} {backend} paged (bs 8, prompts 21/-/9 in chunks of 8, 6 steps): prefill "
             f"logits max|err| {err_logits:.3e}, pool max|err| {err_kv:.3e} (tol {FP32_LOGITS_TOL}); tokens "
             f"equal, slot 1 free")
+
+
+def parity_grads_fp32(dev) -> None:
+    """Phase 3, the training path: every attention function's output and
+    gradients (fp32, small) on the card and on the CPU, and one
+    ``test-dense`` attention-block SGD step, dense and packed: within
+    ``FP32_LOGITS_TOL`` (the step's gradients of a mean, of their largest)."""
+    import torch
+
+    from triton_dist_tpu_torch import function as fn
+    from triton_dist_tpu_torch.function.training import attention_block_loss
+    from triton_dist_tpu_torch.kernels.flash_attn import NEG_INF
+    from triton_dist_tpu_torch.models import PRESETS, init_params
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def grads_on(device, f, args, cots):
+        leaves = [a.detach().clone().to(device).requires_grad_() for a in args]
+        outs = f(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((torch.where(o > NEG_INF, o, 0.0) * c.to(device)).sum() for o, c in zip(outs, cots))
+        loss.backward()
+        return [o.detach().cpu() for o in outs] + [t.grad.cpu() for t in leaves]
+
+    cu, cu_ring = [0, 30, 64, 90], [0, 40, 150, 256]
+    q, k, v, c, cl = randn(1, 8, 96, 64), randn(1, 2, 128, 64), randn(1, 2, 128, 64), randn(1, 8, 96, 64), randn(1, 8, 96)
+    qs, ks, vs = q[:, :, :64], k[:, :, :64], v[:, :, :64]
+    cases = (
+        ("flash_attention_fn (Sq < Sk)", lambda *a: fn.flash_attention_fn(*a, True), (q, k, v), (c,)),
+        ("flash_attention_lse_fn (ring step, dlse)", lambda *a: fn.flash_attention_lse_fn(*a, 128, 64, True),
+         (qs, ks, vs), (c[:, :, :64], cl[:, :, :64])),
+        ("flash_attention_varlen_fn", lambda *a: fn.flash_attention_varlen_fn(*a, cu), (q[0], k[0, :, :96], v[0, :, :96]),
+         (c[0],)),
+        ("flash_attention_varlen_lse_fn (ring step, dlse)",
+         lambda *a: fn.flash_attention_varlen_lse_fn(*a, cu_ring, 128, 64), (qs[0], ks[0], vs[0]),
+         (c[0, :, :64], cl[0, :, :64])),
+    )
+    for label, f, args, cots in cases:
+        err = max(close(g, w, FP32_LOGITS_TOL, FP32_LOGITS_TOL)
+                  for g, w in zip(grads_on(dev, f, args, cots), grads_on("cpu", f, args, cots)))
+        log(f"parity fp32 {label}: outputs and gradients max|err| {err:.3e} (tol {FP32_LOGITS_TOL})")
+
+    cfg = PRESETS["test-dense"]
+    p = init_params(cfg, torch.Generator().manual_seed(SEED + 31), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen)
+    for label, packed in (("dense", None), ("packed", [0, 20, 41, 60])):
+        runs = []
+        for device in ("cpu", dev):
+            leaves = [t.to(device).clone().requires_grad_() for t in (p.wqkv[0], p.wo[0])]
+            loss_fn = lambda wqkv, wo: attention_block_loss(p.embed.to(device), p.ln1[0].to(device), wqkv, wo,
+                                                            tokens.to(device), cfg, cu_seqlens=packed)
+            loss = loss_fn(*leaves)
+            loss.backward()
+            rates = _sgd_rates(leaves)
+            grads = [t.grad.cpu() for t in leaves]
+            _sgd(leaves, rates)
+            with torch.no_grad():
+                runs.append((float(loss), grads, float(loss_fn(*leaves))))
+        (l_cpu, g_cpu, l2_cpu), (l_gpu, g_gpu, l2_gpu) = runs
+        err = max(close_scaled(a, b, FP32_LOGITS_TOL) for a, b in zip(g_gpu, g_cpu))
+        if abs(l_gpu - l_cpu) > FP32_LOGITS_TOL or abs(l2_gpu - l2_cpu) > FP32_LOGITS_TOL or not l2_gpu < l_gpu:
+            raise AssertionError(f"test-dense {label} step: losses cuda {l_gpu} -> {l2_gpu}, cpu {l_cpu} -> {l2_cpu}")
+        log(f"parity fp32 test-dense attention-block SGD step ({label}, 64 tokens): wqkv and wo gradients max|err| "
+            f"{err:.3e} of max|grad|; loss {l_gpu:.6f} -> {l2_gpu:.6f} (cpu {l_cpu:.6f} -> {l2_cpu:.6f})")
 
 
 # ----------------------------------------------- 4. full-width serving
@@ -952,6 +1265,7 @@ def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str,
         "fused_norm_head": steps if mega else 0,
         "fused_moe_block": layers * steps if mega and cfg.is_moe else 0,
         **{name: 0 for name in COLLECTIVE_KERNELS + EP_KERNELS},  # world 1 runs no collective
+        **{name: 0 for name in TRAIN_KERNELS},  # serving runs no training kernel
     }
 
 
@@ -1894,6 +2208,226 @@ def serve_ep_world4(ctx, steps: int) -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------ 5g. training at world 4
+
+def _tp_mlp_loss(ctx, x, ln, w_gu, w_down):
+    """Tutorial 09's Megatron MLP on this rank's rows: RMSNorm (replicated
+    weight) → ``ag_gemm_fn`` on [gate | up] → SwiGLU → ``gemm_rs_fn`` on down;
+    this rank's share of the mean of out²."""
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.function import ag_gemm_fn, gemm_rs_fn
+    from triton_dist_tpu_torch.kernels.norm_rope import rmsnorm
+
+    ff = w_down.shape[0]
+    gu = ag_gemm_fn(ctx, rmsnorm(x, ln, 1e-6), w_gu)
+    a = (F.silu(gu[:, :ff].float()) * gu[:, ff:].float()).to(x.dtype)
+    out = gemm_rs_fn(ctx, a, w_down)
+    return (out.float() ** 2).sum() / (ctx.world * out.numel())
+
+
+def _ring_loss(ctx, x, wqkv, wo, heads):
+    """One attention block on this rank's sequence shard: wqkv and wo
+    replicated, RoPE at global positions, causal ``ring_attention_fn``; this
+    rank's share of the mean of out²."""
+    import torch
+
+    from triton_dist_tpu_torch.function import ring_attention_fn
+    from triton_dist_tpu_torch.kernels.norm_rope import apply_rope
+
+    hq, hkv, hd = heads
+    s_loc = x.shape[0]
+    pos = (torch.arange(s_loc, device=x.device) + ctx.rank * s_loc)[None]
+    qkv = torch.matmul(x.float(), wqkv.float()).to(x.dtype).reshape(1, s_loc, hq + 2 * hkv, hd)
+    q = apply_rope(qkv[:, :, :hq].transpose(1, 2), pos)
+    k = apply_rope(qkv[:, :, hq:hq + hkv].transpose(1, 2), pos)
+    o = ring_attention_fn(ctx, q, k, qkv[:, :, hq + hkv:].transpose(1, 2), causal=True)
+    out = torch.matmul(o.transpose(1, 2).reshape(s_loc, hq * hd).float(), wo.float())
+    return (out ** 2).sum() / (ctx.world * out.numel())
+
+
+def _ep_loss(ctx, x, w_router, wg, wu, wd, top_k):
+    """``ep_moe_fused_fn`` on this rank's tokens (row 25 both ways, row 8);
+    this rank's share of the mean of out²."""
+    from triton_dist_tpu_torch.function import ep_moe_fused_fn
+
+    out = ep_moe_fused_fn(ctx, x, w_router, wg, wu, wd, num_experts=ctx.world * wg.shape[0], top_k=top_k,
+                          use_pallas_a2a=True)
+    return (out.float() ** 2).sum() / (ctx.world * out.numel())
+
+
+def _train_parts(ctx, dtype, small: bool):
+    """The three world-4 training workloads as (label, loss_fn(ctx,
+    *params), params on ``ctx``'s card, replicated flags): full width in
+    bf16, or ``small`` (fp32) for the card-vs-CPU check. Replicated tensors
+    come from one seed on every rank, sharded ones from a seed of the
+    rank."""
+    import functools
+
+    import torch
+
+    from triton_dist_tpu_torch.models import PRESETS
+
+    me, w = ctx.rank, ctx.world
+    c8, cm = PRESETS["qwen3-8b"], PRESETS[EP_PRESET]
+
+    dev = ctx.device
+
+    def randn(seed, *shape, scale=1.0):
+        g = torch.Generator(device=dev).manual_seed(SEED + seed)
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    if small:
+        d, ff, m, heads, s_loc = 256, 512, 96, (4, 2, 64), 64
+        de, e, ffe, t, top_k = 64, 8, 48, 16, 2
+    else:
+        d, ff, m, heads, s_loc = c8.hidden_size, c8.intermediate_size, TRAIN_MLP_TOKENS, (
+            c8.num_q_heads, c8.num_kv_heads, c8.head_dim), TRAIN_RING_TOKENS
+        de, e, ffe, t, top_k = cm.hidden_size, cm.num_experts, cm.moe_intermediate_size, TRAIN_EP_TOKENS, cm.top_k
+    hq, hkv, hd = heads
+    fl = ff // w
+    mlp = ("tp-mlp", _tp_mlp_loss,
+           [randn(700 + me, m, d), torch.ones(d, dtype=dtype, device=dev),
+            randn(710 + me, d, 2 * fl, scale=d ** -0.5), randn(720 + me, fl, d, scale=ff ** -0.5)],
+           [False, True, False, False])
+    ring = ("ring-attention", functools.partial(_ring_loss, heads=heads),
+            [randn(730 + me, s_loc, d), randn(740, d, (hq + 2 * hkv) * hd, scale=d ** -0.5),
+             randn(750, hq * hd, d, scale=(hq * hd) ** -0.5)],
+            [False, True, True])
+    el = e // w
+    ep = ("ep-moe", functools.partial(_ep_loss, top_k=top_k),
+          [randn(760 + me, t, de), randn(770, de, e, scale=de ** -0.5), randn(780 + me, el, de, ffe, scale=de ** -0.5),
+           randn(790 + me, el, de, ffe, scale=de ** -0.5), randn(800 + me, el, ffe, de, scale=ffe ** -0.5)],
+          [False, True, False, False, False])
+    return [mlp, ring, ep]
+
+
+def _grads_of(ctx, loss_fn, params, replicated):
+    """One backward on this rank; replicated tensors' gradients summed over
+    the ranks (``mesh.psum``, rank order)."""
+    from triton_dist_tpu_torch.runtime import mesh
+
+    loss = loss_fn(ctx, *params)
+    loss.backward()
+    for p, rep in zip(params, replicated):
+        if rep:
+            p.grad = mesh.psum(ctx, p.grad.contiguous())
+    return loss
+
+
+def _psum_calls(t) -> int:
+    """Plain collectives one ``mesh.psum`` of a CUDA tensor like ``t`` makes
+    (a tensor larger than the plain slot goes in pieces along dim 0)."""
+    from triton_dist_tpu_torch.shmem.symm import PLAIN_BYTES
+
+    nbytes = t.numel() * t.element_size()
+    if nbytes <= PLAIN_BYTES or t.shape[0] < 2:
+        return 1
+    return -(-t.shape[0] // max(1, PLAIN_BYTES // (nbytes // t.shape[0])))
+
+
+def expected_train_world4(world: int, label: str, params, replicated) -> dict[str, int]:
+    """Launches of a 5g workload: ``TRAIN_STEPS_W4`` steps and one more
+    forward. TP MLP a step: row 16 (gate/up) and row 17 (down) forward, row
+    17 in gate/up's backward (down's backward takes the plain ring, as in
+    JAX). Ring a step: one row 1 and one row 5 call (two launches) per ring
+    step. EP a step: row 25 twice forward and twice backward, row 8 once.
+    Every plain collective is two barriers: the rings of the MLP's backward
+    (three gathers), the ring's KV shifts (2·(world - 1) each way), the sums
+    of the replicated gradients (in pieces of the plain slot), of the loss
+    and, once, of the squared norms."""
+    from triton_dist_tpu_torch.kernels import KERNELS
+
+    n = TRAIN_STEPS_W4
+    want = {name: 0 for name in KERNELS}
+    grad_sums = sum(_psum_calls(p) for p, r in zip(params, replicated) if r)
+    # plain collectives: per step (the forward's and backward's, the
+    # gradient sums, the loss), then the squared norms once, then the last
+    # forward's and its loss
+    if label == "tp-mlp":
+        want.update(ag_gemm_fused=n + 1, gemm_rs_fused=2 * n + 1)
+        fwd, bwd = 0, 3
+    elif label == "ring-attention":
+        want.update(flash_attention=world * (n + 1), flash_attention_bwd=2 * world * n)
+        fwd = bwd = 2 * (world - 1)
+    else:
+        want.update(all_to_all_kernel=4 * n + 2, group_gemm_swiglu=n + 1)
+        fwd = bwd = 0
+    want["barrier_all_on_device"] = 2 * (n * (fwd + bwd + grad_sums + 1) + 1 + fwd + 1)
+    return want
+
+
+def train_world4(ctx) -> dict[str, int]:
+    """5g: three training workloads at world 4 in the rank processes. First,
+    each at a small size in fp32 on the card and on the CPU (the same ranks,
+    ``ctx.on_cpu()``): gradients within ``FP32_LOGITS_TOL`` of their largest
+    (``close_scaled``: the losses are means). Then each at
+    full width in bf16 for ``TRAIN_STEPS_W4`` SGD steps: the total loss (the
+    sum of the ranks') falls at every step, the replicated gradients are the
+    same bits on every rank, and the launches, read around each run, equal
+    ``expected_train_world4``."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.runtime import mesh
+
+    cpu_ctx = ctx.on_cpu()
+    for label, loss_fn, p_gpu, rep in _train_parts(ctx, torch.float32, True):
+        p_cpu = [t.detach().cpu().requires_grad_() for t in p_gpu]
+        p_gpu = [t.requires_grad_() for t in p_gpu]
+        _grads_of(ctx, loss_fn, p_gpu, rep)
+        _grads_of(cpu_ctx, loss_fn, p_cpu, rep)
+        err = max(close_scaled(a.grad.cpu(), b.grad, FP32_LOGITS_TOL) for a, b in zip(p_gpu, p_cpu))
+        rlog(ctx, f"5g parity fp32 {label} (small): gradients card vs CPU max|err| {err:.3e} of max|grad| "
+             f"(tol {FP32_LOGITS_TOL})")
+    total = {name: 0 for name in KERNELS}
+    for label, loss_fn, params, rep in _train_parts(ctx, torch.bfloat16, False):
+        params = [p.requires_grad_() for p in params]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+        ctx.host_barrier()
+        reset_launch_counts()
+        losses, walls = [], []
+        for i in range(TRAIN_STEPS_W4):
+            t0 = time.perf_counter()
+            loss = _grads_of(ctx, loss_fn, params, rep)
+            if i == 0:
+                rates = _sgd_rates(params, lambda sq: mesh.psum(ctx, sq))
+                same = all(_same_on_every_rank(ctx, p.grad) for p, r in zip(params, rep) if r)
+                if not same:
+                    raise AssertionError(f"5g {label}: the replicated gradients differ between the ranks")
+            losses.append(float(mesh.psum(ctx, loss.detach().reshape(1))))
+            _sgd(params, rates)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            losses.append(float(mesh.psum(ctx, loss_fn(ctx, *params).detach().reshape(1))))
+        launches = launch_counts()
+        ctx.check_status()
+        want = expected_train_world4(ctx.world, label, params, rep)
+        if launches != want:
+            raise AssertionError(f"5g {label}: launches {launches}, expected {want}")
+        if not all(math.isfinite(x) for x in losses) or not all(a > b for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"5g {label}: the total loss did not fall at every step: {losses}")
+        rlog(ctx, f"5g {label} (bf16, {TRAIN_STEPS_W4} SGD steps): total loss "
+             + " -> ".join(f"{x:.6e}" for x in losses) + f"; step wall ms {[round(x, 2) for x in walls]}; "
+             f"replicated gradients the same bits on every rank; launches "
+             f"{ {k: v for k, v in launches.items() if v} } as predicted; peak "
+             f"{torch.cuda.max_memory_allocated(ctx.device) / 2**30:.2f} GiB")
+        ctx.host_barrier()
+        wall, busy, families, n_kernels = profile_window(lambda: _grads_of(ctx, loss_fn, params, rep))
+        for p in params:
+            p.grad = None
+        rlog(ctx, f"5g {label} profile: one step (forward, backward, gradient sums) wall {wall:.2f} ms, "
+             + ("device time not measured (no CUDA kernels recorded)" if busy is None else
+                f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), {n_kernels} kernels; by family: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))))
+        for name in KERNELS:
+            total[name] += launches[name]
+        del params
+    return total
+
+
 def _rank_main(rank: int, port: int, results) -> None:
     """One rank of phase 5, in its own process: 5a-5f. Any failure
     reaches the parent as an error and a nonzero exit."""
@@ -1940,8 +2474,14 @@ def _rank_main(rank: int, port: int, results) -> None:
         t0 = time.perf_counter()
         ep_launches = serve_ep_world4(ctx, EP_STEPS_SHARED if shared else EP_STEPS_OWN)
         rlog(ctx, f"5f ({EP_PRESET} EP world 4): {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()  # 5f's model is gone before the training phase
+        t0 = time.perf_counter()
+        train_launches = train_world4(ctx)
+        rlog(ctx, f"5g (training at world 4): {time.perf_counter() - t0:.1f} s")
         ctx.host_barrier()
-        results.put((rank, "ok", {"entries": entries, "launches": launches, "ep_launches": ep_launches}))
+        results.put((rank, "ok", {"entries": entries, "launches": launches, "ep_launches": ep_launches,
+                                  "train_launches": train_launches}))
         ctx.heap.close()
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
@@ -1998,13 +2538,93 @@ def run_world4(timeout_s: float) -> tuple[dict[str, dict], list[dict[str, int]]]
             if p.is_alive():
                 p.kill()
                 p.join()
-    for key in ("launches", "ep_launches"):
+    keys = ("launches", "ep_launches", "train_launches")
+    for key in keys:
         if any(got[r][key] != got[0][key] for r in got):
             raise AssertionError(f"phase 5: the ranks' launch counts differ ({key})")
     entries = got[0]["entries"]
     for name, e in entries.items():
         e["max_abs_err"] = max(got[r]["entries"][name]["max_abs_err"] for r in got)
-    return entries, [got[0]["launches"], got[0]["ep_launches"]]
+    return entries, [got[0][key] for key in keys]
+
+
+# ------------------------------------------------ 6. training at world 1
+
+def train_world1(dev) -> dict[str, int]:
+    """Phase 6: Qwen3-8B's attention block as a training step at full width
+    (bf16, random weights from one seed): embed → RMSNorm → wqkv → RoPE →
+    ``flash_attention_fn`` → wo, loss mean(out²), ``TRAIN_STEPS`` SGD
+    steps on wqkv and wo at B 1, S ``TRAIN_S``; then as many through
+    ``flash_attention_varlen_fn`` on the packed batch ``TRAIN_CU``. The loss
+    falls at every step (the last one read by one more forward); launch
+    counts, read around the two runs, equal one row 1 (row 4) forward and
+    two row 5 (row 6) launches a step plus the last forward."""
+    import torch
+
+    from triton_dist_tpu_torch.function.training import attention_block_loss
+    from triton_dist_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import PRESETS
+
+    cfg = PRESETS["qwen3-8b"]
+    hq, hkv, hd, dm = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+
+    def randn(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    embed = randn(cfg.vocab_size, dm, scale=0.02)
+    ln1 = torch.ones(dm, dtype=torch.bfloat16, device=dev)
+    w0 = (randn(dm, (hq + 2 * hkv) * hd, scale=dm ** -0.5), randn(hq * hd, dm, scale=(hq * hd) ** -0.5))
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_S), generator=gen, device=dev)
+    total = {name: 0 for name in KERNELS}
+    for label, cu, fwd, bwd in (("dense", None, "flash_attention", "flash_attention_bwd"),
+                                ("packed", list(TRAIN_CU), "flash_attention_varlen", "flash_attention_varlen_bwd")):
+        params = [w.clone().requires_grad_() for w in w0]
+
+        def step():
+            loss = attention_block_loss(embed, ln1, *params, tokens, cfg, cu_seqlens=cu)
+            loss.backward()
+            return loss
+
+        step()  # warm-up (cuBLAS, the allocator), outside the counted run
+        for p in params:
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        losses, walls = [], []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rates = _sgd_rates(params) if i == 0 else rates
+            losses.append(float(loss.detach()))
+            _sgd(params, rates)
+        with torch.no_grad():
+            losses.append(float(attention_block_loss(embed, ln1, *params, tokens, cfg, cu_seqlens=cu)))
+        launches = launch_counts()
+        want = {name: 0 for name in KERNELS}
+        want[fwd], want[bwd] = TRAIN_STEPS + 1, 2 * TRAIN_STEPS
+        if launches != want:
+            raise AssertionError(f"training {label}: launches {launches}, expected {want}")
+        if not all(math.isfinite(x) for x in losses) or not all(a > b for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"training {label}: the loss did not fall at every step: {losses}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        wall, busy, families, n_kernels = profile_window(step)
+        for p in params:
+            p.grad = None
+        busy_txt = ("device time not measured (no CUDA kernels recorded)" if busy is None else
+                    f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), {n_kernels} kernels; by family: "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1])))
+        log(f"training world 1 {label} (qwen3-8b attention block, B=1 S={TRAIN_S}"
+            + (f" cu_seqlens {cu}" if cu else "") + f", bf16, SGD rates {rates}): loss "
+            + " -> ".join(f"{x:.6e}" for x in losses) + f"; step wall ms {walls}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } as predicted; peak {peak:.2f} GiB")
+        log(f"training world 1 {label} profile: one step wall {wall:.2f} ms, {busy_txt}")
+        for name in KERNELS:
+            total[name] += launches[name]
+    return total
 
 
 def main() -> int:
@@ -2042,10 +2662,14 @@ def main() -> int:
     entries = check_kernels(dev, flush_buf)
     entries.update(check_mega_kernels(dev, flush_buf))
     entries.update(check_paged_moe_kernels(dev, flush_buf))
+    entries.update(check_training_kernels(dev, flush_buf))
     del flush_buf
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 2 (kernels vs plain, timed): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     parity_fp32(dev)
+    parity_grads_fp32(dev)
     log(f"phase 3 (fp32 parity, CUDA vs CPU): {time.perf_counter() - t_phase:.1f} s")
 
     # Qwen3-8B on the default backend, on mega and on mega through the pool:
@@ -2079,11 +2703,14 @@ def main() -> int:
     entries.update(w4_entries)
     runs.extend(w4_launches)
     log(f"phase 5 (world 4): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    runs.append(train_world1(dev))
+    log(f"phase 6 (training at world 1): {time.perf_counter() - t_phase:.1f} s")
 
-    # --------------------------------------------------------- 6. results
+    # --------------------------------------------------------- 7. results
     kernels = []
-    for name in ("flash_attention", "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS, "paged_flash_decode",
-                 "fused_moe_block", *COLLECTIVE_KERNELS, *EP_KERNELS):
+    for name in ("flash_attention", *TRAIN_KERNELS, "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS,
+                 "paged_flash_decode", "fused_moe_block", *COLLECTIVE_KERNELS, *EP_KERNELS):
         e = dict(entries[name])
         e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",

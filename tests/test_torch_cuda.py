@@ -15,17 +15,25 @@ import pytest
 import torch
 from test_torch_tp_ranks import Ranks
 
+from triton_dist_tpu_torch import function as fn
 from triton_dist_tpu_torch.kernels import (
+    attention_bwd_reference,
     attention_reference,
     decode_reference,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_varlen,
+    flash_attention_varlen_bwd,
     flash_decode,
     group_gemm_swiglu,
     group_swiglu_reference,
     paged_decode_reference,
     paged_flash_decode,
+    varlen_bwd_reference,
+    varlen_reference,
 )
 from triton_dist_tpu_torch.kernels import mega_decode as mk
+from triton_dist_tpu_torch.kernels.flash_attn import NEG_INF
 from triton_dist_tpu_torch.kernels.flash_decode import gather_paged_kv
 from triton_dist_tpu_torch.kernels.mega_moe import fused_moe_block, moe_block_reference
 from triton_dist_tpu_torch.models.kv_cache import NULL_BLOCK
@@ -87,6 +95,187 @@ def test_flash_attention_kernel_vs_plain(cuda, case, dtype, return_lse):
         torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-5)
     else:
         _assert_close(got, want, dtype)
+
+
+# (hq, hkv, t, d, cu_seqlens, q_offset, kv_offset): packed streams with a
+# padding tail, one sequence longer than a tile, ring-step offsets (a shard
+# of a longer stream; a step above the diagonal sees no key).
+VARLEN_CASES = {
+    "pad-tail-g2-d32": (4, 2, 96, 32, [0, 24, 56, 80], None, None),
+    "long-seq-g4-d128": (8, 2, 200, 128, [0, 130, 131, 190], None, None),
+    "no-pad-g1-d64": (4, 4, 128, 64, [0, 64, 100, 128], None, None),
+    "ring-step-g2-d128": (4, 2, 64, 128, [0, 40, 150, 256], 128, 64),
+    "ring-skipped-g2-d64": (4, 2, 64, 64, [0, 40, 150, 256], 64, 128),
+}
+
+
+def _varlen_inputs(case, dtype, device):
+    hq, hkv, t, d, cu, q_offset, kv_offset = VARLEN_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(sum(map(ord, case)))
+    q = _randn(gen, (hq, t, d), dtype, device)
+    k, v = _randn(gen, (hkv, t, d), dtype, device), _randn(gen, (hkv, t, d), dtype, device)
+    return q, k, v, cu, dict(q_offset=q_offset, kv_offset=kv_offset)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("case", list(VARLEN_CASES), ids=list(VARLEN_CASES))
+def test_flash_attention_varlen_kernel_vs_plain(cuda, case, dtype):
+    """Row 4: o and LSE against the plain version; padding rows and rows
+    that see no key exactly 0 with lse NEG_INF."""
+    q, k, v, cu, offs = _varlen_inputs(case, dtype, cuda)
+    before = flash_attention_varlen.launches
+    got_o, got_lse = flash_attention_varlen(q, k, v, cu, return_lse=True, **offs)
+    torch.cuda.synchronize()
+    assert flash_attention_varlen.launches == before + 1
+    want_o, want_lse = varlen_reference(q, k, v, cu, return_lse=True, **offs)
+    _assert_close(got_o, want_o, dtype)
+    empty = want_lse == NEG_INF
+    assert torch.equal(got_lse[empty], want_lse[empty])
+    assert torch.equal(got_o[empty], torch.zeros_like(got_o[empty]))
+    torch.testing.assert_close(got_lse[~empty], want_lse[~empty], atol=1e-3, rtol=1e-5)
+
+
+# (b, hq, hkv, sq, sk, d, causal, q_offset, kv_offset, with dlse)
+BWD_CASES = {
+    "causal-square-g4-d128": (1, 8, 2, 128, 128, 128, True, None, None, False),
+    "causal-ragged-g1-d64": (2, 4, 4, 77, 77, 64, True, None, None, False),
+    "causal-sq<sk-end-aligned-g2-d32": (1, 4, 2, 64, 128, 32, True, None, None, False),
+    "noncausal-g2-d64": (1, 4, 2, 33, 95, 64, False, None, None, False),
+    "ring-step-dlse-g4-d128": (1, 8, 2, 64, 64, 128, True, 128, 64, True),
+    "ring-diagonal-dlse-g2-d32": (1, 4, 2, 96, 96, 32, True, 96, 96, True),
+    "whole-masked-step-g2-d64": (1, 4, 2, 64, 64, 64, True, 0, 128, True),
+}
+
+
+def _bwd_inputs(case, dtype, device):
+    b, hq, hkv, sq, sk, d, causal, q_offset, kv_offset, with_dlse = BWD_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(sum(map(ord, case)))
+    q = _randn(gen, (b, hq, sq, d), dtype, device)
+    k, v = _randn(gen, (b, hkv, sk, d), dtype, device), _randn(gen, (b, hkv, sk, d), dtype, device)
+    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset)
+    o, lse = attention_reference(q, k, v, return_lse=True, **kw)
+    do = _randn(gen, (b, hq, sq, d), dtype, device)
+    dlse = torch.randn((b, hq, sq), generator=gen, device=device) if with_dlse else None
+    return (q, k, v, o, lse, do), dict(kw, dlse=dlse)
+
+
+def _assert_grads(got, want, dtype):
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        _assert_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("case", list(BWD_CASES), ids=list(BWD_CASES))
+def test_flash_attention_bwd_kernel_vs_plain(cuda, case, dtype):
+    """Row 5: (dq, dk, dv) against the plain version; a step that sees no
+    key gives exact zeros; a second call gives the same bits (no atomics)."""
+    args, kw = _bwd_inputs(case, dtype, cuda)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    _assert_grads(got, attention_bwd_reference(*args, **kw), dtype)
+    again = flash_attention_bwd(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if case.startswith("whole-masked"):
+        assert all(not bool(g.any()) for g in got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("case", list(VARLEN_CASES), ids=list(VARLEN_CASES))
+def test_flash_attention_varlen_bwd_kernel_vs_plain(cuda, case, dtype):
+    """Row 6: (dq, dk, dv) against the plain version with a nonzero dlse;
+    padding rows' dq exactly 0; a second call gives the same bits."""
+    q, k, v, cu, offs = _varlen_inputs(case, dtype, cuda)
+    o, lse = varlen_reference(q, k, v, cu, return_lse=True, **offs)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    do = _randn(gen, q.shape, dtype, cuda)
+    dlse = torch.randn(lse.shape, generator=gen, device=cuda)
+    before = flash_attention_varlen_bwd.launches
+    got = flash_attention_varlen_bwd(q, k, v, o, lse, do, cu, dlse=dlse, **offs)
+    torch.cuda.synchronize()
+    assert flash_attention_varlen_bwd.launches == before + 2
+    _assert_grads(got, varlen_bwd_reference(q, k, v, o, lse, do, cu, dlse=dlse, **offs), dtype)
+    again = flash_attention_varlen_bwd(q, k, v, o, lse, do, cu, dlse=dlse, **offs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    empty = lse == NEG_INF
+    assert not bool(got[0][empty].any())
+
+
+def _grads(loss_fn, *leaves):
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    loss_fn(*leaves).backward()
+    return [t.grad for t in leaves]
+
+
+def test_autograd_functions_vs_plain(cuda):
+    """Each attention autograd function's gradients (rows 1 + 5, 4 + 6)
+    against autograd through the plain forward on the same card, fp32 (the
+    point is the algorithm: autograd of the plain forward does not round p
+    and ds to bf16 as the backward kernels and their plain versions do, so
+    bf16 is held kernel against plain backward above); the LSE outputs
+    carry a cotangent too."""
+    dtype = torch.float32
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = _randn(gen, (1, 8, 96, 64), dtype, cuda)
+    k, v = _randn(gen, (1, 2, 96, 64), dtype, cuda), _randn(gen, (1, 2, 96, 64), dtype, cuda)
+    c = _randn(gen, (1, 8, 96, 64), dtype, cuda)
+    cl = torch.randn((1, 8, 96), generator=gen, device=cuda)
+
+    def dense(attn):
+        return lambda q_, k_, v_: (attn(q_, k_, v_).float() * c.float()).sum()
+
+    _assert_grads(_grads(dense(lambda *a: fn.flash_attention_fn(*a, True)), q, k, v),
+                  _grads(dense(lambda *a: attention_reference(*a, causal=True)), q, k, v), dtype)
+
+    def with_lse(attn):
+        def loss(q_, k_, v_):
+            o, lse = attn(q_, k_, v_)
+            return (o.float() * c.float()).sum() + (lse * cl).sum()
+        return loss
+
+    _assert_grads(_grads(with_lse(lambda *a: fn.flash_attention_lse_fn(*a, 32, 0, True)), q, k, v),
+                  _grads(with_lse(lambda *a: attention_reference(*a, return_lse=True, q_offset=32, kv_offset=0)),
+                         q, k, v), dtype)
+    cu = [0, 30, 64, 90]
+    qp, kp, vp = q[0], k[0], v[0]
+
+    def packed(attn):
+        def loss(q_, k_, v_):
+            o, lse = attn(q_, k_, v_)
+            return (o.float() * c[0].float()).sum() + (torch.where(lse > NEG_INF, lse, 0.0) * cl[0]).sum()
+        return loss
+
+    _assert_grads(_grads(packed(lambda *a: fn.flash_attention_varlen_lse_fn(*a, cu, 0, 0)), qp, kp, vp),
+                  _grads(packed(lambda *a: varlen_reference(*a, cu, return_lse=True)), qp, kp, vp), dtype)
+    _assert_grads(_grads(lambda *a: (fn.flash_attention_varlen_fn(*a, cu).float() * c[0].float()).sum(), qp, kp, vp),
+                  _grads(lambda *a: (varlen_reference(*a, cu).float() * c[0].float()).sum(), qp, kp, vp), dtype)
+
+
+def test_training_step_on_cuda_matches_cpu(cuda):
+    """One fp32 ``test-dense`` attention-block step (dense and packed):
+    gradients on the card within 5e-4 of the CPU's (of their largest: the
+    loss is a mean), and the loss falls."""
+    from triton_dist_tpu_torch.function.training import attention_block_loss
+
+    cfg = PRESETS["test-dense"]
+    p = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 40), generator=torch.Generator().manual_seed(4))
+    for cu in (None, [0, 12, 30, 37]):
+        runs = []
+        for dev in ("cpu", cuda):
+            leaves = [t.to(dev) for t in (p.wqkv[0], p.wo[0])]
+            loss_fn = lambda wqkv, wo: attention_block_loss(p.embed.to(dev), p.ln1[0].to(dev), wqkv, wo,
+                                                            tokens.to(dev), cfg, cu_seqlens=cu)
+            grads = _grads(loss_fn, *leaves)
+            loss0 = loss_fn(*leaves).item()
+            loss1 = loss_fn(*[w - 0.5 * g for w, g in zip(leaves, grads)]).item()
+            runs.append((grads, loss0, loss1))
+        (g_cpu, l0, l1), (g_gpu, m0, m1) = runs
+        for a, b in zip(g_gpu, g_cpu):
+            torch.testing.assert_close(a.cpu(), b, atol=5e-4 * b.abs().max().item(), rtol=5e-4)
+        assert m1 < m0 and abs(m0 - l0) < 5e-4
 
 
 # (b, hq, hkv, s, d, lengths)

@@ -49,6 +49,11 @@ def test_port_imports_without_jax():
     # route, the fused kernel (row 26), the layer and the model
     for mod in ("kernels.ep_a2a", "kernels.low_latency_a2a", "kernels.ep_fused", "layers.ep", "models.moe"):
         assert f"triton_dist_tpu_torch.{mod}" in names
+    # the training layer: the autograd functions, the EP MoE function, the
+    # attention-block step and the ring schedule (rows 4-6 live in
+    # kernels.flash_attn beside rows 1 and 5's forward)
+    for mod in ("function", "function.collectives", "function.ep_moe", "function.training", "kernels.sp"):
+        assert f"triton_dist_tpu_torch.{mod}" in names
 
 
 _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+(jax\b|triton_dist_tpu(?!_torch)\b)", re.M)

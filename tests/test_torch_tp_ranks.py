@@ -1,5 +1,5 @@
 """One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``,
-``tests/test_torch_ep.py``).
+``tests/test_torch_ep.py``, ``tests/test_torch_function.py``).
 
 Run as ``python test_torch_tp_ranks.py RANK WORLD STORE [DEVICE]``: it joins a
 ``gloo`` group through the file store STORE, on the CPU (the plain
@@ -295,9 +295,43 @@ def ep_mlp(ctx, arrays, layer, x, mode, use_pallas_a2a):
     return _np(model._ep_mlp(lp, torch.from_numpy(x), mode))
 
 
+def function_grads(ctx, op, args, c, **kw):
+    """One differentiable function of ``triton_dist_tpu_torch.function`` on
+    this rank's inputs ``args`` (numpy): the loss is sum(out · c) (divided by
+    the world size for ``gemm_ar``, whose output and loss every rank holds
+    whole), and the answer the output and the gradient of every input."""
+    from triton_dist_tpu_torch import function as fn
+
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    if op == "ag_gemm":
+        out = fn.ag_gemm_fn(ctx, *leaves)
+    elif op == "gemm_rs":
+        out = fn.gemm_rs_fn(ctx, *leaves)
+    elif op == "gemm_ar":
+        out = fn.gemm_ar_fn(ctx, *leaves)
+    elif op == "a2a":
+        out = fn.all_to_all_single_fn(ctx, *leaves, use_pallas=kw["use_pallas"])
+    elif op == "ep_moe":
+        out = fn.ep_moe_fused_fn(ctx, *leaves, **kw)
+    elif op == "ring":
+        out = fn.ring_attention_fn(ctx, *leaves, **kw)
+    elif op == "ring_varlen":
+        out = fn.ring_attention_varlen_fn(ctx, *leaves, **kw)
+    else:
+        raise ValueError(f"unknown op {op!r}")
+    loss = (out * torch.from_numpy(c)).sum()
+    if op == "gemm_ar":
+        loss = loss / ctx.world
+    loss.backward()
+    grads = [_np(t.grad) for t in leaves]
+    if op == "ep_moe":  # the router is replicated: JAX's gradient is the sum of the ranks'
+        grads[1] = _np(mesh.psum(ctx, leaves[1].grad))
+    return {"out": _np(out), "grads": grads}
+
+
 TASKS = {"collectives": collectives, "matmuls": matmuls, "serve": serve, "dist_prefill": dist_prefill,
          "cuda_kernels": cuda_kernels, "stall": stall, "ep_op": ep_op, "ep_mlp": ep_mlp,
-         "cuda_ep_kernels": cuda_ep_kernels}
+         "cuda_ep_kernels": cuda_ep_kernels, "function_grads": function_grads}
 
 
 def _read(stream):

@@ -10,6 +10,13 @@
 // wrapper passes q_off = q_offset - kv_offset, or Sk - Sq (end-aligned)
 // without offsets.
 //
+// It also replaces `_flash_varlen_kernel` (flash_attn.py:333, launched by
+// `flash_attention_varlen`, pallas_call at :462): packed sequences (H, T, D)
+// run as B = 1 with per-position segment ids (seg_q, seg_k); a key is
+// visible when it is causal with the offset and in the query's segment, and
+// a row with no visible key (padding) gets o = 0 and lse = NEG_INF. The
+// segment mode shares the tile loop: only the mask reads the ids.
+//
 // What bounds it on the H100: at the main path's prefill (Hq = 32, Hkv = 8,
 // D = 128, bf16, causal, Sq = Sk = 1024) the work is about 8.6 GFLOP against
 // 21 MB read and written, some 410 FLOP per byte, above the card's
@@ -34,69 +41,32 @@
 //   owns 8 q rows of a 32-row tile, a lane owns one key of the 32-key tile
 //   for QK^T and D/32 output columns for PV.
 
-#include "common.cuh"
+#include "attn_tile.cuh"
 
 using namespace tdt;
 
 namespace {
 
-// ---------------------------------------------------------------- shared
-
-// One past the last KV tile any row of the q tile [q0, q0 + bq) may see.
-__device__ __forceinline__ int kv_tiles(int q0, int bq, int sq, int sk, int causal, int q_off,
-                                        int bk) {
-  int kv_end = sk;
-  if (causal) {
-    const int last_q = min(q0 + bq, sq) - 1;
-    kv_end = min(sk, q_off + last_q + 1);
-  }
-  return kv_end > 0 ? (kv_end + bk - 1) / bk : 0;
-}
-
 // --------------------------------------------------------- bf16, mma.sync
 
 constexpr int MMA_BQ = 64;
 constexpr int MMA_BK = 64;
-constexpr int MMA_THREADS = 128;
+constexpr int MMA_THREADS = ATTN_THREADS;
 
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// ROWS x D bf16 rows [row0, row0 + ROWS) of a (nrows, D) matrix into shared
-// memory with row stride D + 8; rows at or past nrows become zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_bf16(bf16* s, const bf16* g, int row0, int nrows) {
-  constexpr int LD = D + 8;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += MMA_THREADS) {
-    const int r = c / CPR, cc = c % CPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + cc * 8);
-    *reinterpret_cast<uint4*>(s + r * LD + cc * 8) = val;
-  }
+// A row's log-sum-exp in nats from its base-2 running max and sum. In the
+// packed mode a row with no visible key (padding) gets NEG_INF, so the
+// backward's guard zeroes its probabilities exactly.
+__device__ __forceinline__ float row_lse(float m, float l, bool packed) {
+  if (packed && l == 0.f) return NEG_INF;
+  return (m + log2f(fmaxf(l, 1e-30f))) / LOG2E;
 }
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_fwd_bf16_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                           const bf16* __restrict__ V, bf16* __restrict__ O,
-                          float* __restrict__ LSE, int Hq, int Hkv, int Sq, int Sk, int causal,
+                          float* __restrict__ LSE, const int* __restrict__ seg_q,
+                          const int* __restrict__ seg_k, int Hq, int Hkv, int Sq, int Sk, int causal,
                           int q_off, float scale_log2) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -116,6 +86,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int g = lane >> 2, t = lane & 3;  // mma group and thread-in-group
   const int r0 = warp * 16 + g;           // this thread's tile rows: r0 and r0 + 8
   const int qrow0 = q0 + r0, qrow1 = q0 + r0 + 8;
+  const int sg0 = seg_q != nullptr && qrow0 < Sq ? seg_q[qrow0] : -1;
+  const int sg1 = seg_q != nullptr && qrow1 < Sq ? seg_q[qrow1] : -1;
 
   load_tile_bf16<D, MMA_BQ>(sQ, Qp, q0, Sq);
   __syncthreads();
@@ -158,7 +130,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
     // Scale into the exp2 domain; mask only tiles that cross the diagonal
     // or the ragged end of the keys.
-    const bool masked = (k0 + MMA_BK > Sk) || (causal && k0 + MMA_BK - 1 > q_off + q0);
+    const bool masked =
+        seg_k != nullptr || (k0 + MMA_BK > Sk) || (causal && k0 + MMA_BK - 1 > q_off + q0);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int nt = 0; nt < MMA_BK / 8; ++nt) {
@@ -167,8 +140,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
         float x = s[nt][e] * scale_log2;
         if (masked) {
           const int key = k0 + nt * 8 + t * 2 + (e & 1);
-          const int qr = e < 2 ? qrow0 : qrow1;
-          const bool ok = key < Sk && (!causal || q_off + qr >= key);
+          const bool ok = e < 2 ? visible(qrow0, key, Sq, Sk, causal, q_off, sg0, seg_k)
+                                : visible(qrow1, key, Sq, Sk, causal, q_off, sg1, seg_k);
           x = ok ? x : NEG_INF;
         }
         s[nt][e] = x;
@@ -213,16 +186,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
     // O += P V: P (16 x 64, bf16) from the S registers, V from shared memory.
 #pragma unroll
     for (int j = 0; j < MMA_BK / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * j][0], s[2 * j][1]), pack_bf16x2(s[2 * j][2], s[2 * j][3]),
-          pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const bf16* v0 = sV + (j * 16 + t * 2) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const bf16* vp = v0 + dt * 8;
-        mma16816(acc[dt], pa, pack_bf16x2(vp[0], vp[LD]), pack_bf16x2(vp[8 * LD], vp[9 * LD]));
-      }
+      uint32_t pa[4];
+      c_to_a_frag(pa, s[2 * j], s[2 * j + 1]);
+      mma_rows<D, LD>(acc, pa, sV, j * 16, g, t);
     }
   }
 
@@ -239,8 +205,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
           pack_bf16x2(acc[dt][2] / ls1, acc[dt][3] / ls1);
   }
   if (LSE != nullptr && t == 0) {
-    if (qrow0 < Sq) LSE[(size_t)bh * Sq + qrow0] = (m0 + log2f(fmaxf(l0, 1e-30f))) / LOG2E;
-    if (qrow1 < Sq) LSE[(size_t)bh * Sq + qrow1] = (m1 + log2f(fmaxf(l1, 1e-30f))) / LOG2E;
+    if (qrow0 < Sq) LSE[(size_t)bh * Sq + qrow0] = row_lse(m0, l0, seg_k != nullptr);
+    if (qrow1 < Sq) LSE[(size_t)bh * Sq + qrow1] = row_lse(m1, l1, seg_k != nullptr);
   }
 }
 
@@ -255,8 +221,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(SIMT_THREADS)
     flash_fwd_simt_kernel(const T* __restrict__ Q, const T* __restrict__ K,
                           const T* __restrict__ V, T* __restrict__ O, float* __restrict__ LSE,
-                          int Hq, int Hkv, int Sq, int Sk, int causal, int q_off,
-                          float scale_log2) {
+                          const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Hq,
+                          int Hkv, int Sq, int Sk, int causal, int q_off, float scale_log2) {
   constexpr int KLD = D + 1;  // padded: lane-per-key reads are conflict free
   constexpr int DPL = D / 32;
   extern __shared__ __align__(16) float fsmem[];
@@ -305,13 +271,14 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 #pragma unroll
     for (int i = 0; i < SIMT_ROWS; ++i) {
       const int r = warp * SIMT_ROWS + i;
+      const int qr = q0 + r;
       const float* qrow = sQ + r * D;
       float x = 0.f;
 #pragma unroll 8
       for (int c = 0; c < D; ++c) x = fmaf(qrow[c], krow[c], x);
       x *= scale_log2;
-      const bool ok = key < Sk && (!causal || q_off + q0 + r >= key);
-      x = ok ? x : NEG_INF;
+      const int sg = seg_q != nullptr && qr < Sq ? seg_q[qr] : -1;
+      x = visible(qr, key, Sq, Sk, causal, q_off, sg, seg_k) ? x : NEG_INF;
       const float mx = fmaxf(m[i], warp_max(x));
       const float alpha = exp2f(m[i] - mx);
       float p = mx <= NEG_INF * 0.5f ? 0.f : exp2f(x - mx);
@@ -338,17 +305,16 @@ __global__ void __launch_bounds__(SIMT_THREADS)
     const float ls = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int j = 0; j < DPL; ++j) Op[(size_t)qr * D + lane + j * 32] = from_float<T>(acc[i][j] / ls);
-    if (LSE != nullptr && lane == 0)
-      LSE[(size_t)bh * Sq + qr] = (m[i] + log2f(fmaxf(l[i], 1e-30f))) / LOG2E;
+    if (LSE != nullptr && lane == 0) LSE[(size_t)bh * Sq + qr] = row_lse(m[i], l[i], seg_k != nullptr);
   }
 }
 
 // ------------------------------------------------------------------ launch
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                        int Hq, int Hkv, int Sq, int Sk, int causal, int q_off, float scale_log2,
-                        cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        const int* seg_q, const int* seg_k, int B, int Hq, int Hkv, int Sq, int Sk,
+                        int causal, int q_off, float scale_log2, cudaStream_t stream) {
   const int smem = (MMA_BQ + 2 * MMA_BK) * (D + 8) * (int)sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -356,14 +322,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   const dim3 grid((Sq + MMA_BQ - 1) / MMA_BQ, B * Hq);
   flash_fwd_bf16_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2);
+      static_cast<bf16*>(o), lse, seg_q, seg_k, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                       int Hq, int Hkv, int Sq, int Sk, int causal, int q_off, float scale_log2,
-                       cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       const int* seg_q, const int* seg_k, int B, int Hq, int Hkv, int Sq, int Sk,
+                       int causal, int q_off, float scale_log2, cudaStream_t stream) {
   const int smem = (SIMT_BQ * D + SIMT_BK * (D + 1) + SIMT_BK * D) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_simt_kernel<float, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -371,33 +337,38 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   const dim3 grid((Sq + SIMT_BQ - 1) / SIMT_BQ, B * Hq);
   flash_fwd_simt_kernel<float, D><<<grid, SIMT_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2);
+      static_cast<float*>(o), lse, seg_q, seg_k, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); lse: (B, Hq, Sq) fp32 or NULL.
-// All contiguous on one device. dtype: 0 = fp32, 1 = bf16. D in {32, 64, 128}.
-// Returns cudaGetLastError() after the launch.
+// q, o: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); lse: (B, Hq, Sq) fp32 or NULL;
+// seg_q (Sq,), seg_k (Sk,) int32 segment ids for the packed mode, or both
+// NULL. All contiguous on one device. dtype: 0 = fp32, 1 = bf16. D in
+// {32, 64, 128}. Returns cudaGetLastError() after the launch.
 extern "C" int tdt_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                  void* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                                  int causal, int q_off, float scale_log2, int dtype,
-                                  void* stream) {
+                                  void* lse, const void* seg_q, const void* seg_k, int B, int Hq,
+                                  int Hkv, int Sq, int Sk, int D, int causal, int q_off,
+                                  float scale_log2, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
+#define TDT_FWD(launch, DD) launch<DD>(q, k, v, o, l, sq, sk, B, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2, s)
   if (dtype == 1) {
     switch (D) {
-      case 32: return launch_bf16<32>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2, s);
-      case 64: return launch_bf16<64>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2, s);
-      case 128: return launch_bf16<128>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2, s);
+      case 32: return TDT_FWD(launch_bf16, 32);
+      case 64: return TDT_FWD(launch_bf16, 64);
+      case 128: return TDT_FWD(launch_bf16, 128);
     }
   } else if (dtype == 0) {
     switch (D) {
-      case 32: return launch_f32<32>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2, s);
-      case 64: return launch_f32<64>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2, s);
-      case 128: return launch_f32<128>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, causal, q_off, scale_log2, s);
+      case 32: return TDT_FWD(launch_f32, 32);
+      case 64: return TDT_FWD(launch_f32, 64);
+      case 128: return TDT_FWD(launch_f32, 128);
     }
   }
+#undef TDT_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

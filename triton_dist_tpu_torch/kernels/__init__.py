@@ -1,11 +1,21 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version. Every wrapper counts its launches in ``<wrapper>.launches``."""
+version. Every wrapper counts its launches in ``<wrapper>.launches`` (a
+backward wrapper one per kernel it starts: two a call)."""
 
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_fused, ag_gemm_reference
 from triton_dist_tpu_torch.kernels.common_ops import barrier_all_on_device
 from triton_dist_tpu_torch.kernels.ep_a2a import all_to_all_kernel
 from triton_dist_tpu_torch.kernels.ep_fused import fused_ep_kernel, fused_ep_reference
-from triton_dist_tpu_torch.kernels.flash_attn import attention_reference, flash_attention
+from triton_dist_tpu_torch.kernels.flash_attn import (
+    attention_bwd_reference,
+    attention_reference,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_varlen,
+    flash_attention_varlen_bwd,
+    varlen_bwd_reference,
+    varlen_reference,
+)
 from triton_dist_tpu_torch.kernels.flash_decode import (
     decode_reference,
     flash_decode,
@@ -30,6 +40,9 @@ from triton_dist_tpu_torch.kernels.mega_moe import fused_moe_block, moe_block_re
 #: The kernel wrappers of the served paths, by name.
 KERNELS = {
     "flash_attention": flash_attention,
+    "flash_attention_varlen": flash_attention_varlen,
+    "flash_attention_bwd": flash_attention_bwd,
+    "flash_attention_varlen_bwd": flash_attention_varlen_bwd,
     "flash_decode": flash_decode,
     "paged_flash_decode": paged_flash_decode,
     "group_gemm_swiglu": group_gemm_swiglu,
@@ -70,10 +83,14 @@ __all__ = [
     "gemm_ar_reference",
     "gemm_rs_fused",
     "gemm_rs_reference",
+    "attention_bwd_reference",
     "attention_reference",
     "attn_back_reference",
     "decode_reference",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_varlen",
+    "flash_attention_varlen_bwd",
     "flash_decode",
     "fused_attn_back",
     "fused_ln_qkv_rope",
@@ -88,6 +105,8 @@ __all__ = [
     "norm_head_reference",
     "paged_decode_reference",
     "paged_flash_decode",
+    "varlen_bwd_reference",
+    "varlen_reference",
     "launch_counts",
     "reset_launch_counts",
 ]

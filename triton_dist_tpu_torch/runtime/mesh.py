@@ -10,10 +10,11 @@ symmetric heap (``shmem/symm.py``). Rank r takes card ``r %
 torch.cuda.device_count()``, so four ranks may own four cards or share one.
 No NCCL is used.
 
-``all_gather``, ``psum``, ``psum_scatter``, ``all_to_all`` and
-``ring_ag_chunks`` stand in for XLA's collectives (the ``xla`` mode, the
-small-M routes of the collective matmuls and the expert-parallel
-all-to-all's plain transport). CPU tensors go through ``gloo``. CUDA tensors go
+``all_gather``, ``psum``, ``psum_scatter``, ``all_to_all``, ``ppermute``
+and ``ring_ag_chunks`` stand in for XLA's collectives (the ``xla`` mode,
+the small-M routes of the collective matmuls, the expert-parallel
+all-to-all's plain transport and the training rings' KV rotation). CPU
+tensors go through ``gloo``. CUDA tensors go
 through the heap: copy into this rank's plain slot, the barrier kernel,
 copies from every rank's slot, the barrier again. ``psum`` adds the parts
 in rank order 0..world-1, so every rank holds the same bits.
@@ -120,7 +121,12 @@ def all_gather(ctx: DistContext, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 def psum(ctx: DistContext, x: torch.Tensor) -> torch.Tensor:
-    """The sum of every rank's ``x``, added in rank order."""
+    """The sum of every rank's ``x``, added in rank order. On CUDA a tensor
+    larger than the plain slot goes in pieces along dim 0."""
+    nbytes = x.numel() * x.element_size()
+    if ctx.device.type == "cuda" and nbytes > PLAIN_BYTES and x.dim() > 0 and x.shape[0] > 1:
+        step = max(1, PLAIN_BYTES // (nbytes // x.shape[0]))
+        return torch.cat([psum(ctx, x[i:i + step]) for i in range(0, x.shape[0], step)])
     return _ordered_sum(_parts(ctx, x))
 
 
@@ -168,6 +174,13 @@ def all_to_all(ctx: DistContext, x: torch.Tensor) -> torch.Tensor:
             heap.copy(out[r, c0:c1].data_ptr(), heap.ptr(heap.plain_off, r) + me * nbytes, nbytes)
         barrier_all_on_device(ctx)
     return out
+
+
+def ppermute(ctx: DistContext, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """Shift along the ring: rank r receives rank ``(r - shift) % world``'s
+    ``x`` (``lax.ppermute`` with the pairs ``(i, (i + shift) % world)``).
+    Every rank's ``x`` has one shape; it goes through one gather."""
+    return _parts(ctx, x)[(ctx.rank - shift) % ctx.world].clone()
 
 
 def ring_ag_chunks(ctx: DistContext, x: torch.Tensor):
