@@ -42,12 +42,23 @@ then, on the card:
    symmetric heap through CUDA IPC: (5a) rows 16-19 and the barrier
    against their plain versions at the Qwen3-8B world-4 shapes and at the
    edges, rows 18 and 19 bitwise equal on every rank, each timed beside its
-   bound and, when every rank has its own card, beside NCCL + cuBLAS; (5b)
-   a small fp32 model served on ``dist``, ``dist_ar`` and ``xla`` on the
-   card and on the CPU inside the same ranks, tokens equal; (5c) Qwen3-8B at
-   full width and depth served on ``dist`` (four slots, 32 steps, one
-   ``serve``) plus one ``dist_ar`` prefill, launch counts read around that
-   run and held to the routers' prediction; then, expert-parallel:
+   bound and, when every rank has its own card, beside NCCL + cuBLAS;
+   (5a') rows 20 (ring and full mesh), 21 and 22 bitwise against their
+   plain versions at the served messages (a decode step's all-reduces, a
+   1500-row fp32 two-shot) and at the edges, the same bits on every rank,
+   each timed beside its bound and, with a card a rank, NCCL's collective;
+   then the host ops ``all_reduce``, ``all_gather``, ``reduce_scatter`` at
+   those sizes, counts held to AUTO's routes; (5b) a small fp32 model
+   served on ``dist``, ``dist_ar`` and ``xla`` on the card and on the CPU
+   inside the same ranks, tokens equal; (5b') the same for ``test-dense``
+   on mega and a ``test-moe`` shape as ``Qwen3MoE`` on ``dist``,
+   ``dist_ar`` and mega, decode hidden states the same bits on every rank;
+   (5c) Qwen3-8B at full width and depth served on ``dist`` (four slots, 8
+   decode steps on a shared card and 32 with a card a rank, one
+   ``serve``) plus one ``dist_ar`` prefill, launch counts read
+   around that run and held to the routers' prediction; (5c') the same
+   model on mega (the four slots, 8 decode steps on a shared card and 32
+   with a card a rank; row 22 twice a layer); then, expert-parallel:
    (5d) rows 25 (the all-to-all) and 26 (the fused dispatch, expert MLP
    and return) against their plain versions at the Qwen3-30B-A3B world-4
    shapes and at the edges, row 25 bitwise, row 26 bitwise equal on every
@@ -58,12 +69,16 @@ then, on the card:
    Qwen3-30B-A3B as ``EPMoELLM`` at full width and depth (32 whole experts
    a rank) served on ``dist`` (four slots, 8 decode steps on a shared card
    and 32 with a card a rank) plus one ``dist_ar`` prefill, launch counts
-   held to the routers' prediction; (5g) training at world 4: tutorial 09's
+   held to the routers' prediction; (5h) Qwen3-30B-A3B as ``Qwen3MoE``
+   (``TP_MoE``: every expert's ff split over the ranks) at full width and
+   depth on ``dist`` (the 5c prompts, one ``serve``) and on mega, counts
+   held to the prediction; (5g) training at world 4: tutorial 09's
    TP MLP (``ag_gemm_fn``, ``gemm_rs_fn``), the causal ring
    (``ring_attention_fn``) and the EP MoE (``ep_moe_fused_fn``) at full
    width, each first at a small fp32 size card vs CPU, then two SGD steps
    with the loss falling, replicated gradients the same bits on every rank
-   and the launch counts as predicted;
+   and the launch counts as predicted; last, an abort test: three ranks
+   call row 22 without the fourth and end in a named ``CollectiveAbort``;
 6. trains Qwen3-8B's attention block at world 1 (embed, RMSNorm, wqkv,
    RoPE, ``flash_attention_fn``, wo; B 1, S 4096, bf16): three SGD steps,
    then three through ``flash_attention_varlen_fn`` on a packed batch, the
@@ -142,6 +157,14 @@ EP_STEPS_SHARED, EP_STEPS_OWN = 8, 32
 EP_AR_PROMPT = 384
 #: The expert-parallel kernels (rows 25 and 26).
 EP_KERNELS = ("all_to_all_kernel", "fused_ep_kernel")
+#: The standalone collectives (rows 20, ring and full mesh; 21; 22).
+STANDALONE_KERNELS = ("ring_ag_call", "full_mesh_ag_call", "ring_rs_call", "one_shot_ar_call")
+# Phase 5h: Qwen3-30B-A3B as Qwen3MoE (TP_MoE: every expert's ff split over
+# the ranks) at world 4 on dist, with the 5c prompts and a serve of 2 x
+# (128 + 8); then on mega. 5c' and 5h decode EP_STEPS_SHARED /
+# EP_STEPS_OWN steps, as 5f does.
+TP_MOE_PRESET = "qwen3-moe-30b-a3b"
+TP_MOE_SERVE = (2, 128, 8)
 # The training path (phases 2, 6 and 5g): Qwen3-8B's attention at B 1, S
 # 4096, and the same 4096 tokens packed as sequences of 512, 1024, 1536 and
 # 1000 with a padding tail of 24; SGD steps at world 1 and at world 4 (the
@@ -234,9 +257,11 @@ _MEGA_FAMILIES = (("qkv_partial", "fused_ln_qkv_rope"), ("qkv_epilogue", "fused_
 _SHMEM_FAMILIES = (("ag_push", "ag_gemm_fused"), ("ag_gemm", "ag_gemm_fused"),
                    ("partial_kernel", "rows 17-19 partials"), ("reduce_kernel", "rows 17-19 reduce"),
                    ("gather_kernel", "gemm_ar_fused broadcast"), ("barrier_kernel", "barrier_all_on_device"),
-                   ("a2a_push", "a2a push (rows 25, 26)"), ("a2a_recv", "all_to_all_kernel"),
+                   ("a2a_push", "a2a push (rows 20, 22, 25, 26)"), ("a2a_recv", "all_to_all_kernel"),
                    ("ep_gate_up", "fused_ep_kernel gate/up"), ("ep_down", "fused_ep_kernel down"),
-                   ("ep_combine", "fused_ep_kernel combine"))
+                   ("ep_combine", "fused_ep_kernel combine"), ("ring_ag_kernel", "ring_ag_call"),
+                   ("fullmesh_ag_kernel", "full_mesh_ag_call"), ("ring_rs_kernel", "ring_rs_call"),
+                   ("one_shot_ar_kernel", "one_shot_ar_call"))
 
 
 def _family(kernel_name: str) -> str:
@@ -1264,7 +1289,7 @@ def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str,
         "fused_mlp_block": layers * steps if mega and not cfg.is_moe else 0,
         "fused_norm_head": steps if mega else 0,
         "fused_moe_block": layers * steps if mega and cfg.is_moe else 0,
-        **{name: 0 for name in COLLECTIVE_KERNELS + EP_KERNELS},  # world 1 runs no collective
+        **{name: 0 for name in COLLECTIVE_KERNELS + EP_KERNELS + STANDALONE_KERNELS},  # world 1: no collective
         **{name: 0 for name in TRAIN_KERNELS},  # serving runs no training kernel
     }
 
@@ -1682,6 +1707,190 @@ def check_collective_kernels(ctx, flush_buf, nccl) -> dict[str, dict]:
     return entries
 
 
+def check_standalone_collectives(ctx, flush_buf, nccl) -> dict[str, dict]:
+    """5a': rows 20 (ring and full mesh), 21 and 22 against their plain
+    versions, bitwise, at the messages of the served paths (row 22: one
+    decode step's all-reduces at B = 4; a 1500-row fp32 message, which AUTO
+    sends two-shot: row 21, then row 20's ring on its chunk) and at the
+    edges (one row, a ragged lead, 12 bytes, bf16, a message over one
+    workspace). The gathers and the all-reduces give the same bits on every
+    rank. Each kernel is timed beside its plain version, its bound and, with
+    a card a rank, NCCL's collective in the yardstick group."""
+    import torch
+    import torch.distributed as dist
+
+    from triton_dist_tpu_torch.kernels import (
+        all_gather_reference,
+        full_mesh_ag_call,
+        one_shot_ar_call,
+        one_shot_ar_reference,
+        ring_ag_call,
+        ring_rs_call,
+        ring_rs_reference,
+    )
+    from triton_dist_tpu_torch.kernels.allgather import all_gather_cost
+    from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod, all_reduce_shard, one_shot_ar_cost
+    from triton_dist_tpu_torch.kernels.reduce_scatter import reduce_scatter_cost
+
+    w, me, dev = ctx.world, ctx.rank, ctx.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)  # the same draws on every rank
+    source = "triton_dist_tpu_torch/csrc/collectives.cu"
+    entries = {}
+
+    def draw(shape, dtype=torch.float32):
+        return torch.randn((w, *shape), generator=gen, device=dev).to(dtype)[me].contiguous()
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def bitwise(name, label, got, want, replicated):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"{name} {label}: the kernel's bits differ from the plain version's")
+        if replicated and not _same_on_every_rank(ctx, got):
+            raise AssertionError(f"{name} {label}: the ranks' outputs differ")
+        rlog(ctx, f"{name} {label}: bitwise equal to the plain version"
+             + ("; the same bits on every rank" if replicated else ""))
+
+    def record(name, replaces, kernel, plain, library, cost):
+        e = timed_entry(ctx, flush_buf, name, source, replaces, kernel, plain, library if nccl is not None else None,
+                        cost, library_name="NCCL")
+        e["max_abs_err"] = 0.0  # bitwise
+        entries[name] = e
+
+    # Row 22: one decode step's messages at B = 4, then the edges.
+    for label, shape, dtype, timed in (("attention partial, bf16 4 x 4096 (qwen3-8b mega)", (4, 4096),
+                                        torch.bfloat16, True),
+                                       ("MoE combine, fp32 4 x 2048 (qwen3-moe-30b-a3b)", (4, 2048), torch.float32,
+                                        False),
+                                       ("MLP partial, fp32 4 x 4096 (qwen3-8b mega)", (4, 4096), torch.float32, False),
+                                       ("edge: one row, fp32 1 x 4096", (1, 4096), torch.float32, False),
+                                       ("edge: 12 bytes", (3,), torch.float32, False),
+                                       ("edge: fp32 4096 x 1024, 16 MiB, over one workspace", (4096, 1024),
+                                        torch.float32, False)):
+        x = draw(shape, dtype)
+        bitwise("one_shot_ar_call", label, one_shot_ar_call(ctx, x), one_shot_ar_reference(ctx, x), True)
+        if timed:
+            y = x.clone()
+            record("one_shot_ar_call", "triton_dist_tpu/kernels/allreduce.py:114", lambda x=x: one_shot_ar_call(ctx, x),
+                   lambda x=x: one_shot_ar_reference(ctx, x), lambda y=y: dist.all_reduce(y, group=nccl),
+                   one_shot_ar_cost(nbytes(x), w, x.element_size()))
+    # AUTO's two-shot: row 21 on a 1500-row fp32 message, then row 20's ring
+    # on the chunk; each timed at that message.
+    x = draw((1500, 4096))
+    chunk = ring_rs_call(ctx, x)
+    bitwise("ring_rs_call", "fp32 1500 x 4096", chunk, ring_rs_reference(ctx, x), False)
+    out = torch.empty_like(chunk)
+    record("ring_rs_call", "triton_dist_tpu/kernels/reduce_scatter.py:54", lambda: ring_rs_call(ctx, x),
+           lambda: ring_rs_reference(ctx, x), lambda: dist.reduce_scatter_tensor(out, x, group=nccl),
+           reduce_scatter_cost(nbytes(x), w, 4))
+    bitwise("ring_ag_call", "fp32 375 x 4096 (the chunk)", ring_ag_call(ctx, chunk), all_gather_reference(ctx, chunk),
+            True)
+    gathered = torch.empty((w, *chunk.shape), dtype=chunk.dtype, device=dev)
+    record("ring_ag_call", "triton_dist_tpu/kernels/allgather.py:96", lambda: ring_ag_call(ctx, chunk),
+           lambda: all_gather_reference(ctx, chunk),
+           lambda: dist.all_gather_into_tensor(gathered, chunk, group=nccl), all_gather_cost(nbytes(chunk), w))
+    two = all_reduce_shard(ctx, x, method=AllReduceMethod.TWO_SHOT)
+    bitwise("all_reduce_shard TWO_SHOT", "fp32 1500 x 4096", two, all_gather_reference(ctx, chunk).reshape(x.shape),
+            True)
+    ragged = draw((6, 4096))
+    bitwise("all_reduce_shard TWO_SHOT", "edge: ragged lead 6 (one-shot)",
+            all_reduce_shard(ctx, ragged, method=AllReduceMethod.TWO_SHOT), one_shot_ar_reference(ctx, ragged), True)
+    for label, shape, dtype in (("edge: bf16 4 x 4096 (one row a chunk)", (4, 4096), torch.bfloat16),
+                                ("edge: fp32 8 x 2048", (8, 2048), torch.float32)):
+        x = draw(shape, dtype)
+        bitwise("ring_rs_call", label, ring_rs_call(ctx, x), ring_rs_reference(ctx, x), False)
+    for label, shape, dtype in (("edge: one row, bf16 1 x 4096", (1, 4096), torch.bfloat16),
+                                ("edge: 12 bytes", (3,), torch.float32)):
+        x = draw(shape, dtype)
+        bitwise("ring_ag_call", label, ring_ag_call(ctx, x), all_gather_reference(ctx, x), True)
+    # The full mesh: AUTO's route for a shard of at most 128 KiB (timed at a
+    # decode step's bf16 4 x 4096), then the edges.
+    for label, shape, dtype, timed in (("bf16 4 x 4096", (4, 4096), torch.bfloat16, True),
+                                       ("edge: one row, fp32 1 x 64", (1, 64), torch.float32, False),
+                                       ("edge: 12 bytes", (3,), torch.float32, False),
+                                       ("edge: fp32 4096 x 1024, 16 MiB, over one workspace", (4096, 1024),
+                                        torch.float32, False)):
+        x = draw(shape, dtype)
+        bitwise("full_mesh_ag_call", label, full_mesh_ag_call(ctx, x), all_gather_reference(ctx, x), True)
+        if timed:
+            gathered = torch.empty((w, *shape), dtype=dtype, device=dev)
+            record("full_mesh_ag_call", "triton_dist_tpu/kernels/allgather.py:174",
+                   lambda x=x: full_mesh_ag_call(ctx, x), lambda x=x: all_gather_reference(ctx, x),
+                   lambda x=x, g=gathered: dist.all_gather_into_tensor(g, x, group=nccl),
+                   all_gather_cost(nbytes(x), w))
+    ctx.check_status()
+    return entries
+
+
+def standalone_host_ops(ctx) -> dict[str, int]:
+    """5a' as a path: the host ops ``all_reduce``, ``all_gather`` and
+    ``reduce_scatter`` driven once at the served sizes with AUTO, the launch
+    counts reset just before and read just after: an all-reduce of a decode
+    step's bf16 4 x 4096 (one-shot) and of a 1500-row fp32 message
+    (two-shot: rows 21 and 20), an all-gather of a 32 KB shard (full mesh)
+    and of a 6 MB one (ring), a reduce-scatter of the 1500-row message.
+    Returns the counts, held to the routers' prediction."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.kernels.allgather import all_gather
+    from triton_dist_tpu_torch.kernels.allreduce import all_reduce
+    from triton_dist_tpu_torch.kernels.reduce_scatter import reduce_scatter
+
+    dev = ctx.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    small = torch.randn((4, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    big = torch.randn((1500, 4096), generator=gen, device=dev)
+    shard = torch.randn((375, 4096), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [all_reduce(ctx, small), all_reduce(ctx, big), all_gather(ctx, small), all_gather(ctx, shard),
+            reduce_scatter(ctx, big)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {name: 0 for name in KERNELS}
+    want.update(one_shot_ar_call=1, ring_rs_call=2, ring_ag_call=2, full_mesh_ag_call=1)
+    if launches != want:
+        raise AssertionError(f"host ops: launches {launches}, expected {want}")
+    if [tuple(o.shape) for o in outs] != [(4, 4096), (1500, 4096), (16, 4096), (1500, 4096), (375, 4096)]:
+        raise AssertionError(f"host ops: shapes {[tuple(o.shape) for o in outs]}")
+    if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+        raise AssertionError("host ops: non-finite results")
+    ctx.check_status()
+    rlog(ctx, f"5a' host ops (all_reduce x2, all_gather x2, reduce_scatter; AUTO): launches "
+         f"{ {k: v for k, v in launches.items() if v} } as predicted")
+    return launches
+
+
+def abort_world4(ctx) -> None:
+    """5a''s abort test, run last in the ranks (it leaves the status words
+    set): every rank but the last calls row 22 with its waits bounded by 2 s;
+    each must end in a ``CollectiveAbort`` naming the phase ``ar_recv`` and
+    the absent rank, not a hang."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import one_shot_ar_call
+    from triton_dist_tpu_torch.shmem.symm import CollectiveAbort
+
+    absent = ctx.world - 1
+    ctx.heap.timeout_ns = int(2e9)
+    if ctx.rank == absent:
+        rlog(ctx, "abort test: this rank stays away")
+        return
+    t0 = time.perf_counter()
+    one_shot_ar_call(ctx, torch.ones((4, 4096), dtype=torch.bfloat16, device=ctx.device))
+    try:
+        ctx.check_status()
+    except CollectiveAbort as e:
+        msg = str(e)
+    else:
+        raise AssertionError("abort test: row 22 without rank 3 ended without an abort")
+    if "'ar_recv'" not in msg or f"rank {absent}" not in msg:
+        raise AssertionError(f"abort test: the abort does not name the phase and the peer: {msg}")
+    rlog(ctx, f"abort test: {msg} ({time.perf_counter() - t0:.2f} s)")
+
+
 def parity_world4(ctx) -> None:
     """5b: a small fp32 model at world 4, on the card and on the CPU (the
     plain versions over gloo) inside the same ranks, on ``dist``,
@@ -1730,51 +1939,14 @@ def parity_world4(ctx) -> None:
          f"{max(errs):.3e} (tol {FP32_LOGITS_TOL}); {tokens} tokens equal CUDA vs CPU; launches {counts}")
 
 
-def expected_world4(cfg, world: int, dist_rows: list[int], dist_ar_rows: list[int], steps: int) -> dict:
-    """Launches of a world-4 run: per layer of a ``dist`` prefill of m rows
-    the wqkv and gate/up AG-GEMMs (row 16 above the AG crossover, else the
-    ring) and the wo and down GEMM-RS (row 17 above the RS crossover, else
-    the ring); per layer of a ``dist_ar`` prefill two GEMM-AR (18 or 19); per
-    layer and decode step two of row 19. Every plain collective (a ring,
-    the prefill's gather of the rows, every gather of logits) is two
-    barriers."""
-    import torch
-
-    from triton_dist_tpu_torch.kernels import KERNELS
-    from triton_dist_tpu_torch.kernels.allgather_gemm import AGGemmMethod, get_auto_ag_gemm_method
-    from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmARMethod, get_auto_gemm_ar_method
-    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import GemmRSMethod, get_auto_gemm_rs_method
-
-    layers, d = cfg.num_layers, cfg.hidden_size
-    n_qkv = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim // world
-    want = {name: 0 for name in KERNELS}
-    plain = steps
-    for m in dist_rows:
-        for n in (n_qkv, cfg.intermediate_size // world):
-            fused = get_auto_ag_gemm_method(m // world, d, n, torch.bfloat16, world) is AGGemmMethod.PALLAS_FUSED
-            want["ag_gemm_fused"] += layers if fused else 0
-            plain += 0 if fused else layers
-        fused = get_auto_gemm_rs_method(m, world) is GemmRSMethod.PALLAS_FUSED
-        want["gemm_rs_fused"] += 2 * layers if fused else 0
-        plain += 0 if fused else 2 * layers
-        plain += 2
-    for m in dist_ar_rows:
-        key = "gemm_ar_fused" if get_auto_gemm_ar_method(m, world) is GemmARMethod.PALLAS_FUSED else "gemm_ar_ll"
-        want[key] += 2 * layers
-        plain += 1
-    want["gemm_ar_ll"] += 2 * layers * steps
-    want["flash_attention"] = layers * (len(dist_rows) + len(dist_ar_rows))
-    want["flash_decode"] = layers * steps
-    want["barrier_all_on_device"] = 2 * plain
-    return want
-
-
-def serve_world4(ctx) -> dict[str, int]:
+def serve_world4(ctx, steps: int) -> tuple[dict[str, int], dict[str, int]]:
     """5c: Qwen3-8B at full width and depth (bf16, random weights from one
     seed, each rank its shard) at world 4 through ``Engine(backend="dist")``: four requests
-    into four slots, ``DECODE_STEPS`` steps at B = 4, one ``serve``; then one
+    into four slots, ``steps`` steps at B = 4, one ``serve``; then one
     ``dist_ar`` prefill of the longest prompt. Launch counts are read
-    around exactly that run and must equal ``expected_world4``."""
+    around exactly that run and must equal ``expected_tp_world4``. 5c': the
+    same model on mega (``serve_tp_world4``: the four requests, then
+    ``steps`` steps). Returns the two runs' counts."""
     import torch
 
     from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1817,9 +1989,9 @@ def serve_world4(ctx) -> dict[str, int]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, last, cache, rem = engine.decode_steps(
-        cache, torch.tensor(tokens0, dtype=torch.int32), torch.full((4,), DECODE_STEPS), DECODE_STEPS)
+        cache, torch.tensor(tokens0, dtype=torch.int32), torch.full((4,), steps), steps)
     torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     t0 = time.perf_counter()
     served = engine.serve(serve_ids, gen_len=serve_gen)
     torch.cuda.synchronize()
@@ -1829,14 +2001,15 @@ def serve_world4(ctx) -> dict[str, int]:
     ar_ttft = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
 
-    steps = DECODE_STEPS + serve_gen - 1
-    want = expected_world4(cfg, ctx.world, [*W4_PROMPTS, serve_rows * serve_prompt], [W4_PROMPTS[-1]], steps)
+    n_steps = steps + serve_gen - 1
+    want = expected_tp_world4(cfg, ctx.world, [*W4_PROMPTS, serve_rows * serve_prompt], [W4_PROMPTS[-1]], n_steps,
+                              mega=False)
     if launches != want:
         raise AssertionError(f"world 4: launches on the served path {launches}, expected {want}")
     for name, toks in (("decode_steps", out), ("serve", served)):
         if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
             raise AssertionError(f"world 4 {name} produced tokens outside the vocabulary: {toks.tolist()}")
-    want_len = [n + DECODE_STEPS for n in W4_PROMPTS]
+    want_len = [n + steps for n in W4_PROMPTS]
     if cache.lengths.tolist() != want_len or rem.tolist() != [0] * 4:
         raise AssertionError(f"world 4 slot lengths {cache.lengths.tolist()} != {want_len}")
     step_logits = engine._decode(last, cache, cache.lengths)
@@ -1848,9 +2021,9 @@ def serve_world4(ctx) -> dict[str, int]:
     rlog(ctx, "qwen3-8b world 4 [dist] TTFT " + ", ".join(f"prompt {n}: {t:.2f} ms" for n, t in zip(W4_PROMPTS, ttft))
          + f"; [dist_ar] prompt {W4_PROMPTS[-1]}: {ar_ttft:.2f} ms (first token {int(ar_tok)}, dist gave "
          f"{tokens0[-1]})")
-    rlog(ctx, f"qwen3-8b world 4 [dist] decode_steps B=4, {DECODE_STEPS} steps: {decode_ms:.2f} ms/step "
+    rlog(ctx, f"qwen3-8b world 4 [dist] decode_steps B=4, {steps} steps: {decode_ms:.2f} ms/step "
          f"({4 * 1e3 / decode_ms:.1f} tokens/s); serve B={serve_rows} {serve_prompt}+{serve_gen}: {serve_ms:.1f} ms")
-    rlog(ctx, f"qwen3-8b world 4 launches ({len(W4_PROMPTS) + 1} dist prefills, 1 dist_ar prefill, {steps} steps): "
+    rlog(ctx, f"qwen3-8b world 4 launches ({len(W4_PROMPTS) + 1} dist prefills, 1 dist_ar prefill, {n_steps} steps): "
          f"{ {k: v for k, v in launches.items() if v} }; equal on every rank; peak device memory "
          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     for label, fn, n_steps, unprofiled in (
@@ -1865,7 +2038,289 @@ def serve_world4(ctx) -> dict[str, int]:
         rlog(ctx, f"world 4 profile {label}: profiled wall {wall / n_steps:.2f} ms/step, device busy "
              f"{busy / n_steps:.3f} ms/step ({100 * busy / wall:.1f} %; unprofiled {unprofiled:.2f} ms/step), "
              f"{n_kernels / n_steps:.0f} kernels/step; by family: {shares}")
+    mega_launches = serve_tp_world4(ctx, model, "qwen3-8b", "mega", steps)
+    return launches, mega_launches
+
+
+def _decode_hidden(engine, token, cache):
+    """The final-normed hidden states of one more decode step on
+    ``engine``'s backend (the mega step on mega); the caches take its row."""
+    model = engine.model
+    if engine.decode_mode != "mega":
+        return model.decode_hidden(token, cache.k, cache.v, cache.lengths, mode=engine.decode_mode)
+    x, _, _ = engine._mega_step(engine._mega_layers, model.params.embed[token.long()], cache.k, cache.v,
+                                cache.lengths)
+    return model.final_norm(x)
+
+
+def parity_tp_world4(ctx) -> None:
+    """5b': fp32 at world 4, on the card and on the CPU (the plain versions
+    over gloo) inside the same ranks: ``test-dense`` on mega, and the
+    ``test-moe`` shape with ff 64 (16 a rank: the fused MoE kernel takes ff
+    in multiples of 8) as ``Qwen3MoE`` on ``dist``, ``dist_ar`` and mega.
+    Greedy tokens equal, logits within ``FP32_LOGITS_TOL``, the decode's
+    hidden states the same bits on every rank. Prompts of 2 x 72 tokens take
+    the MoE rings (36 tokens a rank), the 72-token slot the chunked ring
+    and the 12-token one the gathered tiny shard and the unchunked
+    all-reduce; every decode step takes row 22."""
+    import dataclasses
+
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, Qwen3MoE, init_params, params_from_numpy
+    from triton_dist_tpu_torch.runtime.mesh import all_gather
+
+    cpu = ctx.on_cpu()
+    ids = torch.randint(0, 256, (2, 72), generator=torch.Generator().manual_seed(SEED + 42))
+    reset_launch_counts()
+    errs, tokens = [], 0
+    moe_cfg = dataclasses.replace(PRESETS["test-moe"], moe_intermediate_size=64)
+    for cfg, cls, backends in ((PRESETS["test-dense"], DenseLLM, ("mega",)),
+                               (moe_cfg, Qwen3MoE, ("dist", "dist_ar", "mega"))):
+        full = init_params(cfg, torch.Generator().manual_seed(SEED + 41), "cpu")
+        arrays = {k: None if t is None else t.numpy() for k, t in vars(full).items()}
+        m_gpu = cls(cfg, params_from_numpy(arrays, cfg, ctx.device, rank=ctx.rank, world=ctx.world), ctx=ctx)
+        m_cpu = cls(cfg, params_from_numpy(arrays, cfg, "cpu", rank=ctx.rank, world=ctx.world), ctx=cpu)
+        for backend in backends:
+            e_gpu, e_cpu = Engine(m_gpu, backend=backend, max_len=96), Engine(m_cpu, backend=backend, max_len=96)
+            lg_gpu = all_gather(ctx, m_gpu.prefill(ids, mode=e_gpu.prefill_mode)[0], 1)
+            lg_cpu = all_gather(cpu, m_cpu.prefill(ids, mode=e_cpu.prefill_mode)[0], 1)
+            errs.append(close(lg_gpu.cpu(), lg_cpu, FP32_LOGITS_TOL, FP32_LOGITS_TOL))
+            tok_gpu, tok_cpu = e_gpu.serve(ids, gen_len=6), e_cpu.serve(ids, gen_len=6)
+            c_gpu, c_cpu = e_gpu.alloc_slots(2), e_cpu.alloc_slots(2)
+            t_gpu, t_cpu = [], []
+            for slot, n in enumerate((72, 12)):
+                t_gpu.append(e_gpu.prefill_into_slot(c_gpu, slot, ids[slot:slot + 1, :n])[0])
+                t_cpu.append(e_cpu.prefill_into_slot(c_cpu, slot, ids[slot:slot + 1, :n])[0])
+            rem = torch.tensor([6, 3], dtype=torch.int32)
+            out_gpu, last, _, _ = e_gpu.decode_steps(c_gpu, torch.stack(t_gpu), rem, 6)
+            out_cpu = e_cpu.decode_steps(c_cpu, torch.stack(t_cpu), rem, 6)[0]
+            if not (torch.equal(tok_gpu.cpu(), tok_cpu) and torch.equal(out_gpu.cpu(), out_cpu)):
+                raise AssertionError(f"world 4 {cls.__name__} {backend}: CUDA and CPU tokens differ:\n"
+                                     f"cuda {tok_gpu.tolist()} {out_gpu.tolist()}\n"
+                                     f"cpu  {tok_cpu.tolist()} {out_cpu.tolist()}")
+            tokens += tok_gpu.numel() + out_gpu.numel()
+            if not _same_on_every_rank(ctx, _decode_hidden(e_gpu, last, c_gpu)):
+                raise AssertionError(f"world 4 {cls.__name__} {backend}: the ranks' hidden states differ")
+    ctx.check_status()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    for name in ("one_shot_ar_call", "fused_moe_block", "fused_attn_back", "group_gemm_swiglu"):
+        if not counts.get(name):
+            raise AssertionError(f"world 4 fp32 parity (mega, TP_MoE) did not launch {name}: {counts}")
+    rlog(ctx, f"parity fp32 world 4 (test-dense on mega; test-moe with ff 64 as Qwen3MoE on dist, dist_ar, mega): "
+         f"first logits max|err| {max(errs):.3e} (tol {FP32_LOGITS_TOL}); {tokens} tokens equal CUDA vs CPU; decode "
+         f"hidden states bitwise equal on every rank; launches {counts}")
+
+
+def expected_tp_world4(cfg, world: int, dist_rows: list[int], dist_ar_rows: list[int], steps: int,
+                       mega: bool) -> dict:
+    """Launches of a world-4 run of a ``DenseLLM`` or ``Qwen3MoE`` (``TP_MoE``)
+    through ``Engine``: prefills of m rows in ``dist`` mode (``dist_rows``)
+    or in ``dist_ar`` mode (``dist_ar_rows``, the mega backend's prefill),
+    then ``steps`` decode steps, on ``dist_ar`` or, with ``mega``, through
+    the mega step. Per layer: in a ``dist`` prefill of m rows the wqkv and
+    (dense) gate/up AG-GEMMs (row 16 above the AG crossover, else the ring)
+    and the wo and (dense) down GEMM-RS (row 17 above the RS crossover,
+    else the ring); in a ``dist_ar`` prefill or a decode step the wo and
+    (dense) down GEMM-AR (18 or 19); a MoE block's
+    route by mode and tokens (``TP_MoE.forward``): a ring (one grouped
+    SwiGLU and one plain collective a chunk) or the unchunked grouped SwiGLU
+    and ``all_reduce_shard`` (row 22; two-shot, rows 21 and 20, above 256
+    KiB with a lead that splits over the ranks). A mega step: the three
+    fused layer kernels, row 22 twice a layer (the attention's bf16 partial,
+    the MLP's or MoE's fp32 one), one ``fused_norm_head``. Every plain
+    collective is two barriers; every prefill and step gathers its logits."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import KERNELS
+    from triton_dist_tpu_torch.kernels.allgather_gemm import AGGemmMethod, get_auto_ag_gemm_method
+    from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod, get_auto_all_reduce_method
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import GemmARMethod, get_auto_gemm_ar_method
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import GemmRSMethod, get_auto_gemm_rs_method
+
+    layers, d = cfg.num_layers, cfg.hidden_size
+    n_qkv = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim // world
+    want = {name: 0 for name in KERNELS}
+    plain = 0
+
+    def gemm_ar(m, calls):
+        fused = get_auto_gemm_ar_method(m, world) is GemmARMethod.PALLAS_FUSED
+        want["gemm_ar_fused" if fused else "gemm_ar_ll"] += calls * layers
+
+    def moe(t, mode):
+        nonlocal plain
+        if mode == "dist" and t < 8:  # the tiny shards gathered, then the replicated path
+            plain += layers
+            moe(t * world, "dist_ar")
+        elif mode == "dist" or (t % world == 0 and t // world >= 8):  # a ring of world chunks
+            want["group_gemm_swiglu"] += world * layers
+            plain += world * layers
+        else:
+            want["group_gemm_swiglu"] += layers
+            if get_auto_all_reduce_method(t * d * 4, world) is AllReduceMethod.TWO_SHOT and t % world == 0:
+                want["ring_rs_call"] += layers
+                want["ring_ag_call"] += layers
+            else:
+                want["one_shot_ar_call"] += layers
+
+    for m in dist_rows:
+        mlp_cols = [] if cfg.is_moe else [cfg.intermediate_size // world]
+        for n in [n_qkv, *mlp_cols]:
+            fused = get_auto_ag_gemm_method(m // world, d, n, torch.bfloat16, world) is AGGemmMethod.PALLAS_FUSED
+            want["ag_gemm_fused"] += layers if fused else 0
+            plain += 0 if fused else layers
+        fused = get_auto_gemm_rs_method(m, world) is GemmRSMethod.PALLAS_FUSED
+        rs_calls = 1 if cfg.is_moe else 2
+        want["gemm_rs_fused"] += rs_calls * layers if fused else 0
+        plain += (0 if fused else rs_calls * layers) + 2  # and the gathers of the rows and of the logits
+        if cfg.is_moe:
+            moe(m // world, "dist")
+    for m in dist_ar_rows:
+        gemm_ar(m, 1 if cfg.is_moe else 2)
+        plain += 1
+        if cfg.is_moe:
+            moe(m, "dist_ar")
+    want["flash_attention"] = layers * (len(dist_rows) + len(dist_ar_rows))
+    plain += steps
+    if mega:
+        want.update(fused_ln_qkv_rope=layers * steps, fused_attn_back=layers * steps, fused_norm_head=steps)
+        want["fused_moe_block" if cfg.is_moe else "fused_mlp_block"] = layers * steps
+        want["one_shot_ar_call"] += 2 * layers * steps
+    else:
+        want["flash_decode"] = layers * steps
+        gemm_ar(4, (1 if cfg.is_moe else 2) * steps)  # decode batches of at most 4 rows take row 19
+        for _ in range(steps):
+            if cfg.is_moe:
+                moe(4, "dist_ar")
+    want["barrier_all_on_device"] = 2 * plain
+    return want
+
+
+def _tp_profiles(ctx, label, runs) -> None:
+    """The profile lines of §5 for ``runs``: (what, fn, steps, unprofiled ms)."""
+    for what, fn, n_steps, unprofiled in runs:
+        ctx.host_barrier()
+        wall, busy, families, n_kernels = profile_window(fn)
+        if busy is None:
+            rlog(ctx, f"{label} profile {what}: device time not measured (no CUDA kernels recorded)")
+            continue
+        shares = ", ".join(f"{k} {v / n_steps:.3f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+        rlog(ctx, f"{label} profile {what}: profiled wall {wall / n_steps:.2f} ms/step, device busy "
+             f"{busy / n_steps:.3f} ms/step ({100 * busy / wall:.1f} %; unprofiled {unprofiled:.2f} ms/step), "
+             f"{n_kernels / n_steps:.0f} kernels/step; by family: {shares}")
+
+
+def serve_tp_world4(ctx, model, label: str, backend: str, steps: int, serve=None) -> dict[str, int]:
+    """``model`` (its ranks' shards, built) at world 4 through
+    ``Engine(backend=...)``: the ``W4_PROMPTS`` requests into four slots,
+    ``steps`` decode steps at B = 4 and, with ``serve`` (rows, prompt,
+    gen), one ``serve``. Launch counts are read around exactly that run and
+    must equal ``expected_tp_world4``; the tokens must be the same on every
+    rank, the decode's hidden states too. Then the profile lines of one
+    decode chunk (and, on ``dist``, of one prefill)."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import Engine
+
+    cfg, dev = model.config, ctx.device
+    engine = Engine(model, backend=backend, max_len=MAX_LEN)
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def prompt(n, rows=1):
+        return torch.randint(0, cfg.vocab_size, (rows, n), generator=tgen, device=dev)
+
+    warm = engine.alloc_slots(4)
+    tok, warm = engine.prefill_into_slot(warm, 0, prompt(400))
+    engine.decode_steps(warm, torch.stack([tok] * 4), torch.tensor([2, 0, 0, 0]), 2)
+    del warm
+    prompts = [prompt(n) for n in W4_PROMPTS]
+    serve_ids = prompt(serve[1], rows=serve[0]) if serve else None
+    cache = engine.alloc_slots(len(prompts))
+    torch.cuda.synchronize()
+    ctx.host_barrier()
+    reset_launch_counts()
+    ttft, tokens0 = [], []
+    for slot, ids in enumerate(prompts):
+        t0 = time.perf_counter()
+        tok, cache = engine.prefill_into_slot(cache, slot, ids)
+        tokens0.append(int(tok))
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, last, cache, rem = engine.decode_steps(
+        cache, torch.tensor(tokens0, dtype=torch.int32), torch.full((4,), steps), steps)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    served = torch.zeros(0, dtype=torch.int32, device=dev)
+    if serve:
+        t0 = time.perf_counter()
+        served = engine.serve(serve_ids, gen_len=serve[2])
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+
+    rows = list(W4_PROMPTS) + ([serve[0] * serve[1]] if serve else [])
+    n_steps = steps + (serve[2] - 1 if serve else 0)
+    mega = backend == "mega"
+    want = expected_tp_world4(cfg, ctx.world, [] if mega else rows, rows if mega else [], n_steps, mega)
+    if launches != want:
+        raise AssertionError(f"{label} [{backend}]: launches on the served path {launches}, expected {want}")
+    for name, toks in (("decode_steps", out), ("serve", served)):
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{label} [{backend}] {name} produced tokens outside the vocabulary: {toks.tolist()}")
+    want_len = [n + steps for n in W4_PROMPTS]
+    if cache.lengths.tolist() != want_len or rem.tolist() != [0] * 4:
+        raise AssertionError(f"{label} [{backend}] slot lengths {cache.lengths.tolist()} != {want_len}")
+    hidden = _decode_hidden(engine, last, cache)
+    if not bool(torch.isfinite(hidden).all()):
+        raise AssertionError(f"{label} [{backend}]: non-finite hidden states")
+    if not _same_on_every_rank(ctx, hidden):
+        raise AssertionError(f"{label} [{backend}]: the ranks' decode hidden states differ")
+    if not _same_on_every_rank(ctx, torch.cat([out.flatten(), served.flatten(), torch.tensor(tokens0, device=dev)])):
+        raise AssertionError(f"{label} [{backend}]: the ranks sampled different tokens")
+    ctx.check_status()
+    rlog(ctx, f"{label} world 4 [{backend}] TTFT " + ", ".join(f"prompt {n}: {t:.2f} ms" for n, t in
+                                                               zip(W4_PROMPTS, ttft)))
+    rlog(ctx, f"{label} world 4 [{backend}] decode_steps B=4, {steps} steps: {decode_ms:.2f} ms/step "
+         f"({4 * 1e3 / decode_ms:.1f} tokens/s)" + (f"; serve B={serve[0]} {serve[1]}+{serve[2]}: {serve_ms:.1f} ms"
+                                                  if serve else "")
+         + f"; peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on this rank")
+    rlog(ctx, f"{label} world 4 [{backend}] launches ({len(rows)} prefills, {n_steps} steps): "
+         f"{ {k: v for k, v in launches.items() if v} }, as predicted; equal on every rank; decode hidden states "
+         "bitwise equal on every rank")
+    runs = [("decode_steps B=4", lambda: engine.decode_steps(cache, last, torch.full((4,), 2), 2), 2, decode_ms)]
+    if not mega:
+        runs.append((f"prefill {W4_PROMPTS[2]} tokens", lambda: model.prefill(prompts[2]), 1, ttft[2]))
+    _tp_profiles(ctx, f"{label} world 4 [{backend}]", runs)
     return launches
+
+
+def serve_tp_moe_world4(ctx, steps: int) -> list[dict[str, int]]:
+    """5h: Qwen3-30B-A3B at full width and depth as ``Qwen3MoE`` (``TP_MoE``:
+    every rank holds every expert's ff / world columns; bf16, random
+    weights from one seed) served at world 4 on ``dist`` (the 5c prompts in
+    four slots, ``steps`` decode steps, one ``serve``) and then, on the same
+    model, on mega. Returns the two runs' launch counts."""
+    import torch
+
+    from triton_dist_tpu_torch.models import PRESETS, Qwen3MoE
+
+    cfg = PRESETS[TP_MOE_PRESET]
+    dev = ctx.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Qwen3MoE(cfg, ctx=ctx, generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ctx.host_barrier()
+    n_params = sum(t.numel() for t in vars(model.params).values() if t is not None)
+    rlog(ctx, f"{TP_MOE_PRESET} TP_MoE world 4: {cfg.num_layers} layers, {cfg.num_experts} experts of ff "
+         f"{cfg.moe_intermediate_size // ctx.world} a rank, {n_params / 1e9:.2f} B parameters on this rank, built in "
+         f"{time.perf_counter() - t0:.1f} s")
+    runs = [serve_tp_world4(ctx, model, TP_MOE_PRESET, "dist", steps, serve=TP_MOE_SERVE),
+            serve_tp_world4(ctx, model, TP_MOE_PRESET, "mega", steps)]
+    return runs
 
 
 def _routed_send(ctx, cfg, tokens: int, gen, replicated: bool = False):
@@ -2062,7 +2517,7 @@ def parity_ep_world4(ctx) -> None:
 def expected_ep_world4(cfg, world: int, dist_rows: list[int], dist_ar_rows: list[int], steps: int,
                        batch: int) -> dict:
     """Launches of an expert-parallel world-4 run: the attention's as in
-    ``expected_world4`` (wqkv's AG-GEMM and wo's GEMM-RS in a dist prefill,
+    ``expected_tp_world4`` (wqkv's AG-GEMM and wo's GEMM-RS in a dist prefill,
     wo's GEMM-AR in a dist_ar prefill and every decode step); per layer of
     every MoE call the route of its tokens a rank: the low-latency route's
     three all-to-alls (fp8 payload, scales, combine) and one grouped SwiGLU
@@ -2429,8 +2884,8 @@ def train_world4(ctx) -> dict[str, int]:
 
 
 def _rank_main(rank: int, port: int, results) -> None:
-    """One rank of phase 5, in its own process: 5a-5f. Any failure
-    reaches the parent as an error and a nonzero exit."""
+    """One rank of phase 5, in its own process: 5a-5h, then the abort test.
+    Any failure reaches the parent as an error and a nonzero exit."""
     import traceback
 
     try:
@@ -2449,16 +2904,24 @@ def _rank_main(rank: int, port: int, results) -> None:
              f"({'shared by the ranks' if shared else 'its own'})")
         nccl = None if shared else dist.new_group(backend="nccl")  # the yardstick's; the port never uses it
         flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=ctx.device)
+        steps = EP_STEPS_SHARED if shared else EP_STEPS_OWN
         t0 = time.perf_counter()
         entries = check_collective_kernels(ctx, flush_buf, nccl)
         rlog(ctx, f"5a (rows 16-19 and the barrier vs plain, timed): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entries.update(check_standalone_collectives(ctx, flush_buf, nccl))
+        host_op_launches = standalone_host_ops(ctx)
+        rlog(ctx, f"5a' (rows 20-22 vs plain, timed; the host ops): {time.perf_counter() - t0:.1f} s")
         del flush_buf
         t0 = time.perf_counter()
         parity_world4(ctx)
         rlog(ctx, f"5b (fp32 parity world 4, CUDA vs CPU): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        launches = serve_world4(ctx)
-        rlog(ctx, f"5c (qwen3-8b world 4): {time.perf_counter() - t0:.1f} s")
+        parity_tp_world4(ctx)
+        rlog(ctx, f"5b' (fp32 parity world 4, mega and TP_MoE, CUDA vs CPU): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, mega_launches = serve_world4(ctx, steps)
+        rlog(ctx, f"5c, 5c' (qwen3-8b world 4, dist and mega): {time.perf_counter() - t0:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()  # 5c's model is gone before the EP phase loads
         t0 = time.perf_counter()
@@ -2472,30 +2935,41 @@ def _rank_main(rank: int, port: int, results) -> None:
         parity_ep_world4(ctx)
         rlog(ctx, f"5e (fp32 EP parity world 4, CUDA vs CPU): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        ep_launches = serve_ep_world4(ctx, EP_STEPS_SHARED if shared else EP_STEPS_OWN)
+        ep_launches = serve_ep_world4(ctx, steps)
         rlog(ctx, f"5f ({EP_PRESET} EP world 4): {time.perf_counter() - t0:.1f} s")
         gc.collect()
-        torch.cuda.empty_cache()  # 5f's model is gone before the training phase
+        torch.cuda.empty_cache()  # 5f's model is gone before 5h loads
+        t0 = time.perf_counter()
+        tp_moe_launches, tp_moe_mega_launches = serve_tp_moe_world4(ctx, steps)
+        rlog(ctx, f"5h ({TP_MOE_PRESET} TP_MoE world 4, dist and mega): {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()  # 5h's model is gone before the training phase
         t0 = time.perf_counter()
         train_launches = train_world4(ctx)
         rlog(ctx, f"5g (training at world 4): {time.perf_counter() - t0:.1f} s")
         ctx.host_barrier()
-        results.put((rank, "ok", {"entries": entries, "launches": launches, "ep_launches": ep_launches,
+        abort_world4(ctx)
+        ctx.host_barrier()
+        results.put((rank, "ok", {"entries": entries, "launches": launches, "mega_launches": mega_launches,
+                                  "host_op_launches": host_op_launches, "ep_launches": ep_launches,
+                                  "tp_moe_launches": tp_moe_launches, "tp_moe_mega_launches": tp_moe_mega_launches,
                                   "train_launches": train_launches}))
         ctx.heap.close()
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
+        log(f"[rank {rank}] failed:\n{traceback.format_exc()}")
         results.put((rank, "error", traceback.format_exc()))
         sys.stdout.flush()
+        time.sleep(1)  # let the queue's feeder thread hand the error over
         os._exit(1)
 
 
 def run_world4(timeout_s: float) -> tuple[dict[str, dict], list[dict[str, int]]]:
     """Phase 5: four rank processes, rank r on card ``r % device_count``
     (the kernels are built already). Returns rank 0's kernel entries (the
-    max |error| over the ranks) and the launch counts of its two served
-    runs (5c, 5f). Raises if any rank fails or the phase outlives
-    ``timeout_s``."""
+    max |error| over the ranks) and the launch counts of its runs (5c, 5c',
+    the host ops of 5a', 5f, 5h on dist and on mega, 5g). Raises if any
+    rank fails or the phase outlives ``timeout_s``."""
     import multiprocessing as mp
     import queue
     import socket
@@ -2538,7 +3012,8 @@ def run_world4(timeout_s: float) -> tuple[dict[str, dict], list[dict[str, int]]]
             if p.is_alive():
                 p.kill()
                 p.join()
-    keys = ("launches", "ep_launches", "train_launches")
+    keys = ("launches", "mega_launches", "host_op_launches", "ep_launches", "tp_moe_launches",
+            "tp_moe_mega_launches", "train_launches")
     for key in keys:
         if any(got[r][key] != got[0][key] for r in got):
             raise AssertionError(f"phase 5: the ranks' launch counts differ ({key})")
@@ -2710,7 +3185,7 @@ def main() -> int:
     # --------------------------------------------------------- 7. results
     kernels = []
     for name in ("flash_attention", *TRAIN_KERNELS, "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS,
-                 "paged_flash_decode", "fused_moe_block", *COLLECTIVE_KERNELS, *EP_KERNELS):
+                 "paged_flash_decode", "fused_moe_block", *COLLECTIVE_KERNELS, *EP_KERNELS, *STANDALONE_KERNELS):
         e = dict(entries[name])
         e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -715,3 +715,36 @@ def test_stalled_peer_ends_the_ep_all_to_all_in_a_named_abort(cuda, tmp_path):
     for msg in got[:WORLD - 1]:
         assert msg is not None and msg.startswith("CollectiveAbort"), msg
         assert "'a2a_recv'" in msg and f"rank {WORLD - 1}" in msg, msg
+
+
+# --------------------------------------- world 4: rows 20-22, their aborts
+
+def test_standalone_collectives_world4_vs_plain(cuda_ranks):
+    """Rows 20 (ring and full mesh), 21 and 22 bitwise equal to their plain
+    versions at the edges (one row, a ragged lead, 12 bytes, bf16, a message
+    over one workspace); row 22 the same bits on every rank; each call
+    counts one launch."""
+    got = cuda_ranks.ok("cuda_collectives", dict(seed=9))
+    for rank, res in enumerate(got):
+        for case, (equal, same) in res["cases"].items():
+            assert equal, f"rank {rank} {case}: the kernel's bits differ from the plain version's"
+            assert same in (None, True), f"rank {rank} {case}: the ranks' outputs differ"
+        assert res["launches"] == {"ring_ag_call": 6, "full_mesh_ag_call": 6, "ring_rs_call": 3,
+                                   "one_shot_ar_call": 6}
+
+
+@pytest.mark.parametrize("op,phase", [("one_shot", "ar_recv"), ("ring_rs", "rs_recv")])
+def test_stalled_peer_ends_rows_21_22_in_a_named_abort(cuda, tmp_path, op, phase):
+    """Rows 22 and 21 with a rank that never arrives end in
+    ``CollectiveAbort`` naming the phase (row 22: and the absent peer; the
+    ring names the neighbour each rank waited for)."""
+    ranks = Ranks(tmp_path / "store", WORLD, device="cuda")
+    try:
+        got = ranks.ok("stall", dict(absent=WORLD - 1, timeout_s=2.0, op=op))
+    finally:
+        ranks.close()
+    assert got[WORLD - 1] is None
+    for rank, msg in enumerate(got[:WORLD - 1]):
+        assert msg is not None and msg.startswith("CollectiveAbort"), msg
+        peer = WORLD - 1 if op == "one_shot" else (rank - 1) % WORLD
+        assert f"'{phase}'" in msg and f"rank {peer}" in msg, msg

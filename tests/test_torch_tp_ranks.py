@@ -23,12 +23,16 @@ import sys
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch.kernels import allgather as cag
 from triton_dist_tpu_torch.kernels import allgather_gemm as ag
+from triton_dist_tpu_torch.kernels import allreduce as car
 from triton_dist_tpu_torch.kernels import ep_a2a, ep_fused
 from triton_dist_tpu_torch.kernels import gemm_allreduce as ar
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
 from triton_dist_tpu_torch.kernels import low_latency_a2a as ll
-from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, EPMoELLM, params_from_numpy
+from triton_dist_tpu_torch.kernels import reduce_scatter as crs
+from triton_dist_tpu_torch.layers.tp import TP_MoE
+from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, EPMoELLM, Qwen3MoE, params_from_numpy
 from triton_dist_tpu_torch.runtime import mesh
 
 
@@ -59,23 +63,77 @@ def matmuls(ctx, op, method, a, bs):
     return _np(ar.gemm_ar_shard(ctx, a, bs[0], method=ar.GemmARMethod(method)))
 
 
-def _model(ctx, arrays, ep=None):
-    """``test-dense`` as a ``DenseLLM``, or with ``ep`` set (the value of
+def _bits_in(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor; uint16 arrays carry bf16 bits."""
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _bits_out(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as its uint16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.uint16).copy()
+    return _np(t)
+
+
+def collective_ops(ctx, x):
+    """Every route of rows 20-22 and the three host ops on this rank's x
+    (bf16 given as uint16 bits); the reduce-scatters only where dim 0
+    splits over the ranks."""
+    t = _bits_in(x)
+    G, R = cag.AllGatherMethod, car.AllReduceMethod
+    out = {"ring_ag": cag.ring_ag_call(ctx, t), "full_mesh_ag": cag.full_mesh_ag_call(ctx, t),
+           "ag_auto": cag.all_gather_shard(ctx, t), "ag_xla": cag.all_gather_shard(ctx, t, method=G.XLA),
+           "ag_host": cag.all_gather(ctx, t), "one_shot": car.one_shot_ar_call(ctx, t),
+           "two_shot": car.all_reduce_shard(ctx, t, method=R.TWO_SHOT), "ar_auto": car.all_reduce_shard(ctx, t),
+           "ar_xla": car.all_reduce_shard(ctx, t, method=R.XLA), "ar_host": car.all_reduce(ctx, t)}
+    if t.shape[0] % ctx.world == 0:
+        out.update(ring_rs=crs.ring_rs_call(ctx, t), rs_xla=crs.reduce_scatter_shard(ctx, t, use_xla=True),
+                   rs_host=crs.reduce_scatter(ctx, t))
+    return {k: _bits_out(v) for k, v in out.items()}
+
+
+def tp_moe(ctx, x, w_router, w_gate, w_up, w_down, mode, top_k):
+    """``TP_MoE`` in ``mode`` on this rank's x, with this rank's ff columns
+    of the global expert slabs (gate, up (E, d, ff); down (E, ff, d))."""
+    f = w_gate.shape[2] // ctx.world
+    cols = slice(ctx.rank * f, (ctx.rank + 1) * f)
+    moe = TP_MoE(*(torch.from_numpy(np.ascontiguousarray(w)) for w in
+                   (w_router, w_gate[:, :, cols], w_up[:, :, cols], w_down[:, cols])), top_k=top_k, ctx=ctx)
+    return _np(moe(torch.from_numpy(x), mode=mode))
+
+
+def _model(ctx, arrays, ep=None, moe=False):
+    """``test-dense`` as a ``DenseLLM``, with ``moe`` ``test-moe`` as a
+    ``Qwen3MoE`` (ff columns a rank), or with ``ep`` set (the value of
     ``use_pallas_a2a``) ``test-moe`` as an ``EPMoELLM``, from the global
     arrays."""
     if ep is None:
-        cfg = PRESETS["test-dense"]
-        return DenseLLM(cfg, params_from_numpy(arrays, cfg, "cpu", rank=ctx.rank, world=ctx.world), ctx=ctx)
+        cfg = PRESETS["test-moe" if moe else "test-dense"]
+        cls = Qwen3MoE if moe else DenseLLM
+        return cls(cfg, params_from_numpy(arrays, cfg, "cpu", rank=ctx.rank, world=ctx.world), ctx=ctx)
     cfg = PRESETS["test-moe"]
     params = params_from_numpy(arrays, cfg, "cpu", rank=ctx.rank, world=ctx.world, expert_parallel=True)
     return EPMoELLM(cfg, params, ctx=ctx, use_pallas_a2a=ep)
 
 
-def serve(ctx, arrays, backend, ids, gen_len, prompts, remaining, chunk, max_len, ep=None):
+def _decode_hidden(engine, token, cache):
+    """The final-normed hidden states of one more decode step on
+    ``engine``'s backend (the mega step on mega)."""
+    model = engine.model
+    if engine.decode_mode != "mega":
+        return model.decode_hidden(token, cache.k, cache.v, cache.lengths, mode=engine.decode_mode)
+    x = model.params.embed[token.long()]
+    x, _, _ = engine._mega_step(engine._mega_layers, x, cache.k, cache.v, cache.lengths)
+    return model.final_norm(x)
+
+
+def serve(ctx, arrays, backend, ids, gen_len, prompts, remaining, chunk, max_len, ep=None, moe=False):
     """``serve`` (none when ``gen_len`` is 0), the first logits of its
-    prefill, and two slots through ``prefill_into_slot`` + ``decode_steps``
-    on ``backend``."""
-    model = _model(ctx, arrays, ep)
+    prefill, two slots through ``prefill_into_slot`` + ``decode_steps`` on
+    ``backend``, then the hidden states of one more step."""
+    model = _model(ctx, arrays, ep, moe)
     engine = Engine(model, backend=backend, max_len=max_len)
     ids = torch.tensor(ids)
     logits, _ = model.prefill(ids, mode=engine.prefill_mode)
@@ -85,8 +143,10 @@ def serve(ctx, arrays, backend, ids, gen_len, prompts, remaining, chunk, max_len
     first = [int(engine.prefill_into_slot(cache, slot, torch.tensor([p]))[0]) for slot, p in enumerate(prompts)]
     out, last, cache, rem = engine.decode_steps(cache, torch.tensor(first, dtype=torch.int32),
                                                 torch.tensor(remaining), chunk)
-    return {"logits": _np(logits), "served": _np(served), "first": first, "out": _np(out),
-            "lengths": _np(cache.lengths), "k": _np(cache.k)}
+    result = {"logits": _np(logits), "served": _np(served), "first": first, "out": _np(out),
+              "lengths": _np(cache.lengths), "k": _np(cache.k)}
+    result["hidden"] = _np(_decode_hidden(engine, last, cache))
+    return result
 
 
 def dist_prefill(ctx, arrays, ids):
@@ -144,15 +204,52 @@ def cuda_kernels(ctx, dtype, seed, atol, rtol):
     return {"cases": out, "launches": launches}
 
 
+def cuda_collectives(ctx, seed):
+    """Rows 20-22 on the card against their plain versions on the same
+    inputs, at edge shapes (one row, a ragged lead, odd byte counts, bf16,
+    a message larger than one workspace). Every rank draws every rank's
+    inputs from ``seed``. Returns, per case, whether the kernel's bits equal
+    the plain version's and whether every rank got the same bits; and the
+    launches each wrapper counted."""
+    w, me, dev = ctx.world, ctx.rank, ctx.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fns = (cag.ring_ag_call, cag.full_mesh_ag_call, crs.ring_rs_call, car.one_shot_ar_call)
+    before = {f.__name__: f.launches for f in fns}
+    out = {}
+    for label, shape, dtype in (("one row fp32", (1, 64), torch.float32),
+                                ("ragged (6, 48) fp32", (6, 48), torch.float32),
+                                ("(4, 4096) bf16", (4, 4096), torch.bfloat16), ("3 fp32", (3,), torch.float32),
+                                ("(8, 2048) fp32", (8, 2048), torch.float32),
+                                ("(4096, 1024) fp32, over one workspace", (4096, 1024), torch.float32)):
+        x = torch.randn((w, *shape), generator=gen, device=dev).to(dtype)[me].contiguous()
+        cases = [("ring_ag", cag.ring_ag_call, cag.all_gather_reference, False),
+                 ("full_mesh_ag", cag.full_mesh_ag_call, cag.all_gather_reference, False),
+                 ("one_shot", car.one_shot_ar_call, car.one_shot_ar_reference, True)]
+        if shape[0] % w == 0:
+            cases.append(("ring_rs", crs.ring_rs_call, crs.ring_rs_reference, False))
+        for name, fn, ref, replicated in cases:
+            got, want = fn(ctx, x), ref(ctx, x)
+            torch.cuda.synchronize()
+            same = _same_on_every_rank(ctx, got) if replicated else None
+            out[f"{name} {label}"] = (torch.equal(got.view(torch.uint8), want.view(torch.uint8)), same)
+    ctx.check_status()
+    return {"cases": out, "launches": {f.__name__: f.launches - before[f.__name__] for f in fns}}
+
+
 def stall(ctx, absent, timeout_s, op="ll"):
-    """Every rank but ``absent`` calls the LL GEMM-AR (``op="ll"``) or the EP
-    all-to-all (``op="a2a"``) with its waits bounded by ``timeout_s``;
-    returns what ``check_status`` raised (or None)."""
+    """Every rank but ``absent`` calls the LL GEMM-AR (``op="ll"``), the EP
+    all-to-all (``op="a2a"``), the one-shot all-reduce (``"one_shot"``) or
+    the ring reduce-scatter (``"ring_rs"``) with its waits bounded by
+    ``timeout_s``; returns what ``check_status`` raised (or None)."""
     ctx.heap.timeout_ns = int(timeout_s * 1e9)
     if ctx.rank == absent:
         return None
     if op == "a2a":
         ep_a2a.all_to_all_kernel(ctx, torch.ones((ctx.world, 8, 64), device=ctx.device))
+    elif op == "one_shot":
+        car.one_shot_ar_call(ctx, torch.ones((4, 4096), device=ctx.device))
+    elif op == "ring_rs":
+        crs.ring_rs_call(ctx, torch.ones((8, 64), device=ctx.device))
     else:
         a = torch.ones((4, 64), device=ctx.device)
         ar.gemm_ar_ll(ctx, a, torch.ones((64, 64), device=ctx.device))
@@ -329,7 +426,8 @@ def function_grads(ctx, op, args, c, **kw):
     return {"out": _np(out), "grads": grads}
 
 
-TASKS = {"collectives": collectives, "matmuls": matmuls, "serve": serve, "dist_prefill": dist_prefill,
+TASKS = {"collectives": collectives, "collective_ops": collective_ops, "tp_moe": tp_moe,
+         "matmuls": matmuls, "serve": serve, "dist_prefill": dist_prefill, "cuda_collectives": cuda_collectives,
          "cuda_kernels": cuda_kernels, "stall": stall, "ep_op": ep_op, "ep_mlp": ep_mlp,
          "cuda_ep_kernels": cuda_ep_kernels, "function_grads": function_grads}
 

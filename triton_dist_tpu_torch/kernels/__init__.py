@@ -2,7 +2,9 @@
 version. Every wrapper counts its launches in ``<wrapper>.launches`` (a
 backward wrapper one per kernel it starts: two a call)."""
 
+from triton_dist_tpu_torch.kernels.allgather import all_gather_reference, full_mesh_ag_call, ring_ag_call
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_fused, ag_gemm_reference
+from triton_dist_tpu_torch.kernels.allreduce import one_shot_ar_call, one_shot_ar_reference
 from triton_dist_tpu_torch.kernels.common_ops import barrier_all_on_device
 from triton_dist_tpu_torch.kernels.ep_a2a import all_to_all_kernel
 from triton_dist_tpu_torch.kernels.ep_fused import fused_ep_kernel, fused_ep_reference
@@ -36,6 +38,7 @@ from triton_dist_tpu_torch.kernels.mega_decode import (
     norm_head_reference,
 )
 from triton_dist_tpu_torch.kernels.mega_moe import fused_moe_block, moe_block_reference
+from triton_dist_tpu_torch.kernels.reduce_scatter import ring_rs_call, ring_rs_reference
 
 #: The kernel wrappers of the served paths, by name.
 KERNELS = {
@@ -58,6 +61,10 @@ KERNELS = {
     "barrier_all_on_device": barrier_all_on_device,
     "all_to_all_kernel": all_to_all_kernel,
     "fused_ep_kernel": fused_ep_kernel,
+    "ring_ag_call": ring_ag_call,
+    "full_mesh_ag_call": full_mesh_ag_call,
+    "ring_rs_call": ring_rs_call,
+    "one_shot_ar_call": one_shot_ar_call,
 }
 
 
@@ -74,6 +81,13 @@ __all__ = [
     "KERNELS",
     "ag_gemm_fused",
     "ag_gemm_reference",
+    "all_gather_reference",
+    "full_mesh_ag_call",
+    "one_shot_ar_call",
+    "one_shot_ar_reference",
+    "ring_ag_call",
+    "ring_rs_call",
+    "ring_rs_reference",
     "all_to_all_kernel",
     "barrier_all_on_device",
     "fused_ep_kernel",

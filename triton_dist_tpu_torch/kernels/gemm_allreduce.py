@@ -9,7 +9,11 @@ same bits. At world 1 it is a plain product. ``XLA`` is ``psum`` of
 (row 19: tiny or ragged m, decode) and ``PALLAS_FUSED`` ``gemm_ar_fused``
 (row 18: m % world == 0 above the crossover), each the kernel of
 ``csrc/collective_gemm.cu`` on CUDA tensors and its plain version on CPU
-tensors. ``ONE_SHOT`` needs row 22 and ``RS_AG`` rows 20 and 21; both raise.
+tensors. ``ONE_SHOT`` casts the fp32 partial to a's dtype and all-reduces it
+with row 22 (``allreduce.one_shot_ar_call``); ``RS_AG`` reduce-scatters the
+fp32 partial in rank order (the ``XLA_RING`` route of ``gemm_rs_shard``) and
+gathers the chunks with row 20's ring (``allgather.ring_ag_call``), as JAX
+does (``gemm_allreduce.py:771-784``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import enum
 import torch
 
 from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels.allgather import AllGatherMethod, all_gather_shard
 from triton_dist_tpu_torch.kernels.allgather_gemm import (
     _U64,
     check_operands,
@@ -26,7 +31,13 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import (
     dtype_code,
     workspace_check,
 )
-from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import launch_rs_ar, tiles_ok
+from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod, all_reduce_shard
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
+    GemmRSMethod,
+    gemm_rs_shard,
+    launch_rs_ar,
+    tiles_ok,
+)
 from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
 from triton_dist_tpu_torch.runtime import mesh
 from triton_dist_tpu_torch.shmem.symm import ALIGN, MAX_SLOTS, WS_BYTES
@@ -44,10 +55,6 @@ class GemmARMethod(enum.Enum):
 #: Rows of M at or below which AUTO takes the low-latency kernel
 #: (``gemm_allreduce.py:78``).
 DEFAULT_GEMM_AR_CROSSOVER_M = 64
-NEEDS_ROW_22 = ("GemmARMethod.ONE_SHOT needs the one-shot all-reduce kernel (row 22, ROADMAP queue 1 "
-                "item C)")
-NEEDS_ROWS_20_21 = ("GemmARMethod.RS_AG needs the ring reduce-scatter and all-gather kernels (rows 20 and "
-                    "21, ROADMAP queue 1 item C)")
 
 
 def get_auto_gemm_ar_method(m: int, world: int) -> GemmARMethod:
@@ -133,9 +140,10 @@ def gemm_ar_shard(ctx, a: torch.Tensor, b: torch.Tensor, *,
     if method is GemmARMethod.PALLAS_FUSED:
         return gemm_ar_fused(ctx, a, b)
     if method is GemmARMethod.ONE_SHOT:
-        raise NotImplementedError(NEEDS_ROW_22)
+        return all_reduce_shard(ctx, matmul_f32(a, b).to(a.dtype), method=AllReduceMethod.ONE_SHOT)
     if method is GemmARMethod.RS_AG:
-        raise NotImplementedError(NEEDS_ROWS_20_21)
+        scattered = gemm_rs_shard(ctx, a, b, method=GemmRSMethod.XLA_RING)
+        return all_gather_shard(ctx, scattered, method=AllGatherMethod.RING_1D).reshape(a.shape[0], b.shape[1])
     return gemm_ar_reference(ctx, a, b)
 
 

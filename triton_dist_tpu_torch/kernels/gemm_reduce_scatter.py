@@ -8,8 +8,8 @@ rank order. At world 1 it is a plain product. ``XLA`` and ``XLA_RING`` run
 ``psum_scatter`` of ``runtime/mesh.py`` on the fp32 partial (the ring's sum
 is taken in rank order here); ``PALLAS_FUSED`` runs ``gemm_rs_fused``: the
 kernel of ``csrc/collective_gemm.cu`` on CUDA tensors, its plain version on
-CPU tensors. ``PALLAS`` (a Pallas GEMM, then the ring reduce-scatter kernel)
-needs rows 7 and 21 and raises.
+CPU tensors. ``PALLAS`` (a Pallas GEMM, then the ring reduce-scatter kernel
+of row 21) needs the GEMM of row 7 and raises.
 """
 
 from __future__ import annotations
@@ -42,8 +42,7 @@ class GemmRSMethod(enum.Enum):
 
 #: Rows of M at or below which AUTO takes the ring (``gemm_reduce_scatter.py:86``).
 DEFAULT_GEMM_RS_CROSSOVER_M = 256
-NEEDS_ROWS_7_21 = ("GemmRSMethod.PALLAS needs the Pallas GEMM and the ring reduce-scatter kernel "
-                   "(rows 7 and 21, ROADMAP queue 1 item C)")
+NEEDS_ROW_7 = "GemmRSMethod.PALLAS needs the tiled GEMM kernel (row 7, ROADMAP queue 1 item C4)"
 
 
 def get_auto_gemm_rs_method(m: int, world: int) -> GemmRSMethod:
@@ -115,7 +114,7 @@ def gemm_rs_shard(ctx, a: torch.Tensor, b: torch.Tensor, *,
     if method is GemmRSMethod.PALLAS_FUSED:
         return gemm_rs_fused(ctx, a, b)
     if method is GemmRSMethod.PALLAS:
-        raise NotImplementedError(NEEDS_ROWS_7_21)
+        raise NotImplementedError(NEEDS_ROW_7)
     return gemm_rs_reference(ctx, a, b)
 
 

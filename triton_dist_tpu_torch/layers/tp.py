@@ -16,9 +16,10 @@ The modes are JAX's:
 
 At world 1 every collective matmul is a plain product, so the three modes
 compute the same. ``TP_MoE`` keeps the JAX branches by mode and token
-count; at world 1 they all route every token with one capacity, and all
-but ``xla`` run the grouped gate/up kernel. ``TP_MoE`` at world > 1 needs
-``moe_comm``'s rings and raises.
+count: the rings of ``kernels/moe_comm.py``, or the unchunked grouped GEMMs
+followed by ``all_reduce_shard`` (rows 20-22) or ``psum``; at world 1 they
+all route every token with one capacity, and all but ``xla`` run the
+grouped gate/up kernel.
 
 The caches are updated in place (JAX returns new arrays): ``decode`` and
 ``prefill_chunk`` write their new K/V rows into the tensors they are given
@@ -31,21 +32,18 @@ import torch
 from torch import nn
 
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_shard, ag_gemm_swiglu_shard
+from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod, all_reduce_shard
 from triton_dist_tpu_torch.kernels.flash_attn import flash_attention
 from triton_dist_tpu_torch.kernels.flash_decode import flash_decode
 from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_shard
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs_shard
 from triton_dist_tpu_torch.kernels.group_gemm import group_gemm, group_gemm_swiglu, matmul_f32
-from triton_dist_tpu_torch.kernels.moe_comm import tp_moe_ar_shard, tp_moe_one_chunk, tp_moe_rs_shard
+from triton_dist_tpu_torch.kernels.moe_comm import tp_moe_ar_shard, tp_moe_partial, tp_moe_rs_shard
 from triton_dist_tpu_torch.kernels.moe_utils import CAPACITY_ALIGN
 from triton_dist_tpu_torch.kernels.norm_rope import apply_rope, rmsnorm
-from triton_dist_tpu_torch.runtime.mesh import psum
+from triton_dist_tpu_torch.runtime.mesh import all_gather, psum
 
 MODES = ("xla", "dist", "dist_ar")
-MOE_WORLD_GT_1 = (
-    "TP_MoE at tensor-parallel world > 1 needs moe_comm's AG-MoE and MoE-RS rings "
-    "(ROADMAP queue 1 item B, its remainder)"
-)
 
 
 def _check_mode(mode: str) -> None:
@@ -123,52 +121,56 @@ class TP_MoE(nn.Module):
     with a per-expert capacity of ``MOE_CAPACITY_FACTOR``; the down
     projection's partial sums reduce over the ranks in fp32.
 
-    Weights: ``w_router`` (d, E), ``w_gate`` and ``w_up`` (E, d, ff),
-    ``w_down`` (E, ff, d)."""
+    Weights (this rank's shard): ``w_router`` (d, E), ``w_gate`` and
+    ``w_up`` (E, d, ff_local), ``w_down`` (E, ff_local, d)."""
 
     def __init__(self, w_router, w_gate, w_up, w_down, *, top_k: int = 8, ctx=None):
         super().__init__()
-        if _world(ctx) != 1:
-            raise NotImplementedError(MOE_WORLD_GT_1)
         self.register_buffer("w_router", w_router, persistent=False)
         self.register_buffer("w_gate", w_gate, persistent=False)
         self.register_buffer("w_up", w_up, persistent=False)
         self.register_buffer("w_down", w_down, persistent=False)
         self.top_k = top_k
-        self.world = 1
+        self.ctx = ctx
 
     def forward(self, x: torch.Tensor, mode: str = "dist_ar") -> torch.Tensor:
         """x (T, d) → (T, d), branch by branch as JAX's ``TP_MoE.__call__``:
 
         * ``dist`` (x seq-sharded): T < ``CAPACITY_ALIGN`` gathers the
-          shards and takes the replicated path; otherwise the AG-MoE → MoE-RS
-          ring pair, ``tp_moe_rs_shard``.
-        * ``dist_ar`` (x replicated): T/world ≥ ``CAPACITY_ALIGN`` takes the
-          chunked ring, ``tp_moe_ar_shard``; smaller T routes all of x at
-          once, runs the grouped GEMMs and all-reduces.
+          shards, takes the replicated path and keeps this rank's rows;
+          otherwise the AG-MoE → MoE-RS ring pair, ``tp_moe_rs_shard``.
+        * ``dist_ar`` (x replicated): T % world == 0 with T/world ≥
+          ``CAPACITY_ALIGN`` takes the chunked ring, ``tp_moe_ar_shard``;
+          otherwise all of x is routed at once, run through the grouped
+          GEMMs, and the fp32 partials are all-reduced (``AUTO``).
         * ``xla``: the same unchunked routing with plain grouped GEMMs (no
-          kernel), then a psum.
+          kernel), then a ``psum``.
 
-        At world 1 the gather, the rings and the reductions are identities,
-        so every branch routes all T tokens with ``capacity_for(T, k, E,
-        MOE_CAPACITY_FACTOR)`` and combines in fp32 before one cast."""
+        The ring paths route with a per-chunk capacity, the others with one
+        capacity for all T tokens (JAX's contract). At world 1 the gather,
+        the rings and the reductions are identities."""
         _check_mode(mode)
-        world = self.world
+        ctx, world = self.ctx, _world(self.ctx)
         t = x.shape[0]
         weights = (self.w_router, self.w_gate, self.w_up, self.w_down)
         kw = dict(top_k=self.top_k, capacity_factor=MOE_CAPACITY_FACTOR)
         if mode == "dist":
             if t < CAPACITY_ALIGN:
-                # JAX gathers the seq shards (the identity at world 1), runs
-                # the replicated path and slices its own chunk back (all of it).
-                return self.forward(x, mode="dist_ar")
-            return tp_moe_rs_shard(x, *weights, **kw)
+                # Tiny seq shards: gather once, run the replicated path, keep
+                # this rank's chunk.
+                if world == 1:
+                    return self.forward(x, mode="dist_ar")
+                out = self.forward(all_gather(ctx, x, 0), mode="dist_ar")
+                return out[ctx.rank * t:(ctx.rank + 1) * t]
+            return tp_moe_rs_shard(ctx, x, *weights, **kw)
         if mode == "dist_ar" and t % world == 0 and t // world >= CAPACITY_ALIGN:
-            return tp_moe_ar_shard(x, *weights, **kw)
-        # Unchunked: all of x routed at once; the fp32 partials' psum /
-        # all-reduce over one rank is the identity.
+            return tp_moe_ar_shard(ctx, x, *weights, **kw)
+        # Unchunked: all of x routed at once; fp32 partials on the wire.
         swiglu = _xla_swiglu if mode == "xla" else group_gemm_swiglu
-        return tp_moe_one_chunk(x, *weights, swiglu=swiglu, **kw)
+        out = tp_moe_partial(x, *weights, swiglu=swiglu, **kw)
+        if world > 1:
+            out = psum(ctx, out) if mode == "xla" else all_reduce_shard(ctx, out, method=AllReduceMethod.AUTO)
+        return out.to(x.dtype)
 
 
 class TP_Attn(nn.Module):

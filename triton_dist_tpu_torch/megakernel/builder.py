@@ -1,6 +1,6 @@
 """ModelBuilder: assemble a decode step from fused task groups.
 
-Counterpart of ``triton_dist_tpu/megakernel/builder.py`` at world 1.
+Counterpart of ``triton_dist_tpu/megakernel/builder.py``.
 ``make_*`` calls record the model's ops into ``self.graph``;
 ``build_layer_fn`` / ``build_step_fn`` consume the scheduler's fusion
 groups to pick kernels: an ``attn_front`` group lowers to
@@ -21,19 +21,27 @@ tensors or, with ``paged=True``, the stacked block pools ``(L,
 num_blocks, Hkv, bs, D)`` with the block tables and the per-slot active
 mask as step inputs; both are updated in place (JAX returns new arrays).
 
+At tensor-parallel world > 1 (a ``ctx``, JAX's ``world``) every rank
+records the same graph over its shard: its q and kv heads and its ff
+columns. The attention back-leg's fp32 o-projection partial is cast to the
+model dtype and all-reduced one-shot (row 22); the MLP's partial and the
+MoE block's fp32 combine are all-reduced with ``AUTO`` in fp32 and cast
+(``allreduce.all_reduce_shard``), at JAX's rounding points
+(``builder.py:470-479, 609-616, 823-834``).
+
 Not ported: the JAX builder's ``moe_impl`` hook, through which the
 expert-parallel model lowers its ``moe`` task, comes with that model
 (ROADMAP queue 1 items B and C); ``build_verify_fn`` (speculative
-decoding, item C) raises ``NotImplementedError``. The builder takes no tensor-parallel
-world: the model it serves refuses world > 1 where it is built
-(``layers/tp.py``).
+decoding, item C) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from triton_dist_tpu_torch.kernels.allreduce import AllReduceMethod, all_reduce_shard
 from triton_dist_tpu_torch.kernels.flash_decode import flash_decode, paged_flash_decode
+from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_shard
 from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
 from triton_dist_tpu_torch.kernels.moe_utils import (
     capacity_for,
@@ -108,12 +116,19 @@ class ModelBuilder:
     To audit or override the fusion, record first, mutate ``mb.graph``
     (``pin_standalone``), then call ``build_layer_fn()``: it lowers
     whatever the graph holds. ``schedule_policy`` is ``"scoreboard"``
-    (default), ``"static"`` or ``"cost"`` (``TaskGraph.schedule``)."""
+    (default), ``"static"`` or ``"cost"`` (``TaskGraph.schedule``).
+    ``ctx`` (``runtime.mesh.DistContext``; None at world 1) sets the
+    tensor-parallel world the step runs at, JAX's ``world``."""
 
-    def __init__(self, config, schedule_policy: str = "scoreboard", paged: bool = False):
+    def __init__(self, config, schedule_policy: str = "scoreboard", paged: bool = False, *, ctx=None):
         self.config = config
         self.schedule_policy = schedule_policy
         self.paged = paged
+        self.ctx = ctx
+        self.world = 1 if ctx is None else ctx.world
+        if config.num_q_heads % self.world or config.num_kv_heads % self.world:
+            raise ValueError(f"{config.num_q_heads} q and {config.num_kv_heads} kv heads do not split over "
+                             f"{self.world} ranks")
         self.graph = TaskGraph()
         self.plan: list[str] = []
 
@@ -126,7 +141,7 @@ class ModelBuilder:
         c = self.config
         b = COST_BATCH_HINT
         d = c.hidden_size
-        hq, hkv, hd = c.num_q_heads, c.num_kv_heads, c.head_dim
+        hq, hkv, hd = c.num_q_heads // self.world, c.num_kv_heads // self.world, c.head_dim
         cols = (hq + 2 * hkv) * hd
         # Element counts, not bytes: every tensor in a group shares the
         # model dtype, so the itemsize cancels out of the ratio.
@@ -137,11 +152,11 @@ class ModelBuilder:
             saved = 2 * b * hq * hd  # attention output round-trip
             base = hq * hd * d + 2 * hkv * COST_CTX_HINT * hd * b
         elif gname == "mlp_block":
-            ff = c.intermediate_size
+            ff = c.intermediate_size // self.world
             saved = 2 * (b * d + 3 * b * ff)
             base = 3 * d * ff + b * d
         elif gname == "moe_block":
-            ff = c.moe_intermediate_size
+            ff = c.moe_intermediate_size // self.world
             e = c.num_experts
             cap = capacity_for(b, c.top_k, e, MOE_CAPACITY_FACTOR)
             saved = 2 * e * cap * ff
@@ -352,8 +367,21 @@ class ModelBuilder:
         group of the step graph belongs to one layer); ``li=None`` reads it
         from the cache values that ``layer_fn`` threads through."""
         c = self.config
-        hq, hkv, hd = c.num_q_heads, c.num_kv_heads, c.head_dim
+        hq, hkv, hd = c.num_q_heads // self.world, c.num_kv_heads // self.world, c.head_dim
         eps = c.rms_eps
+        ctx, world = self.ctx, self.world
+
+        def attn_all_reduce(partial, dtype):
+            """The o-projection's fp32 partial cast to the model dtype, then
+            all-reduced one-shot (the identity at world 1), as JAX's back-leg
+            does."""
+            return all_reduce_shard(ctx, partial.to(dtype), method=AllReduceMethod.ONE_SHOT)
+
+        def fp32_all_reduce(x, dtype):
+            """x all-reduced in fp32 with ``AUTO`` (world > 1), cast to dtype."""
+            if world > 1:
+                x = all_reduce_shard(ctx, x.float(), method=AllReduceMethod.AUTO)
+            return x.to(dtype)
 
         def param(name):
             return name.split(":", 1)[1]
@@ -388,8 +416,8 @@ class ModelBuilder:
             # [cache_update(k, v, pk, pv, len, active, tables), flash_decode(·),
             #  linear_allreduce(·, wo), add(x, ·)]: pool write, block-table
             # walk and o-projection in one fused_paged_attn_back call; the
-            # partial is cast to the model dtype (its all-reduce is the
-            # identity at world 1), then the residual.
+            # partial is cast to the model dtype and all-reduced, then the
+            # residual.
             cu_t, fd_t, oar_t, add_t = group
             k_in, v_in, kc_in, vc_in, len_in, act_in, tab_in = cu_t.inputs
             q_in = fd_t.inputs[0]
@@ -407,7 +435,7 @@ class ModelBuilder:
                 partial, pk, pv = fused_paged_attn_back(
                     q, env[k_in], env[v_in], pk, pv, li_, env[tab_in], env[len_in], env[act_in],
                     lp[wo_p], at=at)
-                env[out_v] = env[resid_in] + partial.to(q.dtype)
+                env[out_v] = env[resid_in] + attn_all_reduce(partial, q.dtype)
                 env[kc_out] = (pk, li_)
                 env[vc_out] = (pv, li_)
             return fused_paged_attn_back_ex
@@ -418,9 +446,9 @@ class ModelBuilder:
             # attn_sweep: [flash_decode_append(q, k, v, kc, vc, len),
             #              linear_allreduce(·, wo), add(x, ·)]
             # One fused_attn_back call (the new row spliced in by the kernel);
-            # the o-projection partial is cast to the model dtype, its
-            # all-reduce is the identity at world 1, then the residual. The
-            # classic group also writes the new row into the cache.
+            # the o-projection partial is cast to the model dtype and
+            # all-reduced, then the residual. The classic group also writes
+            # the new row into the cache.
             if gname == "attn_back":
                 cu_t, fd_t, oar_t, add_t = group
                 q_in, (k_in, v_in, kc_in, vc_in, len_in) = fd_t.inputs[0], cu_t.inputs
@@ -440,7 +468,7 @@ class ModelBuilder:
                 lengths = env[len_in]
                 li_ = cache_li(env_li)
                 partial = fused_attn_back(q, k_new, v_new, ks[li_], vs[li_], lengths, lp[wo_p])
-                env[out_v] = env[resid_in] + partial.to(q.dtype)
+                env[out_v] = env[resid_in] + attn_all_reduce(partial, q.dtype)
                 if cu_t is not None:
                     at = _append_at(env, len_in, ks.shape[3])
                     _write_rows(ks, li_, k_new, at)
@@ -455,7 +483,7 @@ class ModelBuilder:
             # [moe(xn, router, wg, wu, wd)]: the routing, dispatch and the
             # fp32 weighted combine as TP_MoE does them, the routed experts
             # in ONE fused_moe_block call (h never leaves the kernel), the
-            # combine's all-reduce the identity at world 1, then one cast.
+            # combine all-reduced in fp32, then one cast.
             moe_t = group[0]
             x_in, out_v = moe_t.inputs[0], moe_t.outputs[0]
             r_p, g_p, u_p, d_p = (param(i) for i in moe_t.inputs[1:])
@@ -467,7 +495,7 @@ class ModelBuilder:
                 idx, wts = topk_routing(matmul_f32(x, lp[r_p]), c.top_k)
                 plan = make_routing_plan(idx, n_e, capacity_for(tkn, c.top_k, n_e, MOE_CAPACITY_FACTOR))
                 y = fused_moe_block(dispatch(x, plan), lp[g_p], lp[u_p], lp[d_p])
-                env[out_v] = combine(y, plan, wts, tkn, out_dtype=torch.float32).to(x.dtype)
+                env[out_v] = fp32_all_reduce(combine(y, plan, wts, tkn, out_dtype=torch.float32), x.dtype)
             return fused_moe_ex
 
         if gname == "mlp_block":
@@ -589,9 +617,10 @@ class ModelBuilder:
 
         if op == "linear_allreduce":
             def standalone_linear_ar(env, lp, t=task):
-                # gemm_ar_shard over one rank: the fp32-accumulated product, cast.
-                x = env[t.inputs[0]]
-                env[t.outputs[0]] = matmul_f32(x, lp[param(t.inputs[1])]).to(x.dtype)
+                # The fp32-accumulated product, cast; all-reduced by the AUTO
+                # route of gemm_ar_shard at world > 1.
+                x, w = env[t.inputs[0]], lp[param(t.inputs[1])]
+                env[t.outputs[0]] = gemm_ar_shard(ctx, x, w) if world > 1 else matmul_f32(x, w).to(x.dtype)
             return standalone_linear_ar
 
         if op == "add":
@@ -608,15 +637,14 @@ class ModelBuilder:
 
         if op == "allreduce":
             def standalone_allreduce(env, lp, t=task):
-                # The all-reduce over one rank is the identity (JAX takes it
-                # through fp32 and back, which changes nothing either).
-                env[t.outputs[0]] = env[t.inputs[0]]
+                x = env[t.inputs[0]]
+                env[t.outputs[0]] = fp32_all_reduce(x, x.dtype)
             return standalone_allreduce
 
         if op == "moe":
             def standalone_moe(env, lp, t=task):
                 # The jit-level TP_MoE lowering, in its dist_ar mode.
-                moe = TP_MoE(*(lp[param(i)] for i in t.inputs[1:]), top_k=c.top_k)
+                moe = TP_MoE(*(lp[param(i)] for i in t.inputs[1:]), top_k=c.top_k, ctx=ctx)
                 env[t.outputs[0]] = moe(env[t.inputs[0]], mode="dist_ar")
             return standalone_moe
 

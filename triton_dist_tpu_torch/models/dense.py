@@ -13,10 +13,12 @@ At world > 1 every rank holds its shard of the parameters, as JAX's
 ``mlp_up`` and ``lm_head`` split into contiguous column blocks, ``wo`` and
 ``mlp_down`` into row blocks, the rest whole. JAX reads each rank's
 ``wqkv`` block as [q | k | v] of its own heads, so on the same global arrays
-the world-4 model is not the world-1 model. ``TP_MoE`` and the mega
-backend at world > 1 are not ported and raise; the expert-parallel MoE
-model is ``models.moe.EPMoELLM`` (its slabs by whole experts,
-``EP_SHARD_DIM``).
+the world-4 model is not the world-1 model. A MoE config's expert slabs
+split by ff columns (gate, up) and rows (down) as well, every rank holding
+every expert (``TP_MoE``); the expert-parallel MoE model is
+``models.moe.EPMoELLM`` (its slabs by whole experts, ``EP_SHARD_DIM``). The
+mega step at world > 1 runs the builder over this rank's shard with the
+context's all-reduces (JAX ``_mega_builder``, ``dense.py:294-317``).
 """
 
 from __future__ import annotations
@@ -40,8 +42,6 @@ SHARD_DIM = {"wqkv": -1, "mlp_gate": -1, "mlp_up": -1, "lm_head": -1, "wo": -2, 
 #: The expert-parallel placement (JAX ``models/moe.py:ep_specs``): the MoE
 #: expert slabs split on their expert dimension, whole experts per rank.
 EP_SHARD_DIM = {**SHARD_DIM, "mlp_gate": -3, "mlp_up": -3, "mlp_down": -3}
-MEGA_WORLD_GT_1 = ("the mega backend at tensor-parallel world > 1 needs the mega builder's world "
-                   "(ROADMAP queue 1 item B, its remainder)")
 
 
 def shard(name: str, t, rank: int, world: int, expert_parallel: bool = False):
@@ -291,9 +291,8 @@ class DenseLLM:
         leading-index slice of a contiguous tensor is contiguous), so the
         kernels read the stacked weights in place and no second copy exists;
         the JAX package materialises a per-layer copy here, because a Pallas
-        call cannot take a slice lazily."""
-        if self.world > 1:
-            raise NotImplementedError(MEGA_WORLD_GT_1)
+        call cannot take a slice lazily. At world > 1 they are this rank's
+        shard."""
         p = self.params
         fields = self._LAYER_FIELDS + (("router",) if self.config.is_moe else ())
         return [{f: getattr(p, f)[i] for f in fields} for i in range(self.config.num_layers)]
@@ -302,17 +301,16 @@ class DenseLLM:
         """The whole decode step as one recorded task graph
         (``ModelBuilder.build_step_fn``, scoreboard policy), over the
         contiguous caches or, with ``paged``, the block pools; its ``plan``
-        lists the lowerings."""
-        if self.world > 1:
-            raise NotImplementedError(MEGA_WORLD_GT_1)
-        return ModelBuilder(self.config, paged=paged).build_step_fn(self.config.num_layers)
+        lists the lowerings. At world > 1 the step is this rank's, its
+        all-reduces over ``ctx``."""
+        return ModelBuilder(self.config, paged=paged, ctx=self.ctx).build_step_fn(self.config.num_layers)
 
     @torch.no_grad()
     def decode_mega(self, step_fn, mega_layers: list, token, ks, vs, lengths):
         """One mega decode step (JAX ``decode_shard_mega``): embed, the step
         function over ``mega_layers`` (``split_layer_params``), then the
-        fused final norm and lm_head. Returns (logits (B, V) fp32, ks, vs);
-        the caches are updated in place."""
+        fused final norm and lm_head. Returns (logits (B, V / world) fp32,
+        this rank's columns, ks, vs); the caches are updated in place."""
         x = self.params.embed[self._tokens(token)]
         x, ks, vs = step_fn(mega_layers, x, ks, vs, lengths)
         logits = fused_norm_head(x, self.params.final_norm, self.params.lm_head, eps=self.config.rms_eps)

@@ -24,9 +24,10 @@ logits are gathered over the ranks before sampling (JAX
 ``engine.py:176-178,277-279``), so every rank samples the same token, and
 the status word of the rank's collectives is read after each sample.
 ``serve``, ``alloc_slots``, ``prefill_into_slot`` and ``decode_steps`` run
-on ``xla``, ``dist`` and ``dist_ar``; the paged entry points and ``mega``
-raise there. ``mega`` raises for an ``EPMoELLM`` at any world (its MoE
-lowering waits for the mega builder's ``moe_impl`` hook).
+on every backend, ``mega`` included (its step all-reduces over the ranks,
+JAX ``dense.py:294-317``); the paged entry points raise there. ``mega``
+raises for an ``EPMoELLM`` at any world (its MoE lowering waits for the
+mega builder's ``moe_impl`` hook).
 """
 
 from __future__ import annotations
@@ -51,8 +52,7 @@ PREFIX_REUSE = ("prefix reuse (paged_seed_kbuf) comes with the serving scheduler
                 "ROADMAP queue 1 item A")
 SPECULATIVE = ("speculative decoding (the drafter, spec_decode_steps and its paged twin) is "
                "ROADMAP queue 1 item C")
-PAGED_WORLD_GT_1 = ("the paged KV entry points at tensor-parallel world > 1 are ROADMAP queue 1 "
-                    "item B's remainder")
+PAGED_WORLD_GT_1 = "the paged KV entry points at tensor-parallel world > 1 are ROADMAP queue 1 item B3"
 
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
@@ -100,10 +100,10 @@ class Engine:
         self.kv_cache: KVCache | None = None
         self.world = model.world
         if backend == "mega":
-            # Built once: the step functions (contiguous and paged) and the
-            # per-layer weight views.
+            # Built once: the step functions (contiguous and, at world 1 where
+            # the paged entry points run, paged) and the per-layer weight views.
             self._mega_step = model.mega_step_fn()
-            self._mega_paged_step = model.mega_step_fn(paged=True)
+            self._mega_paged_step = model.mega_step_fn(paged=True) if self.world == 1 else None
             self._mega_layers = model.split_layer_params()
 
     @property

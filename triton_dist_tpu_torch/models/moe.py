@@ -30,10 +30,8 @@ from triton_dist_tpu_torch.layers.tp import MOE_CAPACITY_FACTOR
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import EP_SHARD_DIM, DenseLLM, DenseParams
 
-MEGA_EP_WORLD_1 = ("EPMoELLM on the mega backend needs the mega builder's moe_impl hook (JAX "
-                   "megakernel/builder.py:73,575; ROADMAP queue 1 item C)")
-MEGA_EP_WORLD_GT_1 = ("EPMoELLM on the mega backend at world > 1 needs the mega builder's world and its "
-                      "moe_impl hook (ROADMAP queue 1 item B2)")
+MEGA_EP = ("EPMoELLM on the mega backend needs the mega builder's moe_impl hook (JAX "
+           "megakernel/builder.py:73,575; ROADMAP queue 1 item C4)")
 
 
 def ep_specs(config: ModelConfig) -> dict[str, int]:
@@ -92,7 +90,7 @@ class EPMoELLM(DenseLLM):
         return moe(x)
 
     def split_layer_params(self) -> list[dict]:
-        raise NotImplementedError(MEGA_EP_WORLD_GT_1 if self.world > 1 else MEGA_EP_WORLD_1)
+        raise NotImplementedError(MEGA_EP)
 
     def mega_step_fn(self, *, paged: bool = False):
-        raise NotImplementedError(MEGA_EP_WORLD_GT_1 if self.world > 1 else MEGA_EP_WORLD_1)
+        raise NotImplementedError(MEGA_EP)
