@@ -15,12 +15,14 @@ then, on the card:
    one ``torch.bmm`` of x against the concatenated gate and up weights for
    the grouped SwiGLU, the cuBLAS products (and SDPA) of each mega decode
    kernel; the port calls none of them) and the card's bound for the same
-   work;
+   work; row 3b (the walk of an fp8 or int8 pool) also bitwise against row
+   3 on the pool dequantized to bf16, timed beside it;
 3. serves a small dense model, ``test-dense`` on the mega backend, the
    ``test-moe`` MoE model on ``dist`` and ``mega``, and through the paged
    pool ``test-moe`` and ``test-dense`` on ``mega`` and ``test-dense`` on
    ``dist`` (fp32) through ``Engine`` on CUDA and on the CPU (plain
-   versions) and requires equal greedy tokens and close logits; then every
+   versions), the paged ones again through fp8 and int8 pools, and requires
+   equal greedy tokens and close logits; then every
    attention autograd function of ``triton_dist_tpu_torch.function`` and
    one ``test-dense`` attention-block SGD step (dense and packed), fp32,
    gradients on the card against the CPU's;
@@ -31,11 +33,13 @@ then, on the card:
    that run, first on the ``dist`` backend and then, on the same model and
    requests, on ``mega``, then on ``mega`` through a paged KV pool
    (``alloc_paged``, ``prefill_chunk`` in chunks of 256,
-   ``complete_paged_prefill``, ``decode_steps_paged``); then frees it and
+   ``complete_paged_prefill``, ``decode_steps_paged``) and through fp8 and
+   int8 pools of as many blocks; then frees it and
    serves Qwen3-30B-A3B at full width and depth (48 layers, 128 experts,
    top-8, bf16) with the same four requests and a batch-8 ``serve`` on
-   ``dist``, and the four requests on ``mega`` through the pool, each run's
-   counts read around its own run;
+   ``dist``, and the four requests on ``mega`` through the pool and through
+   an fp8 pool, each run's counts read around its own run, the quantized
+   runs' first-step logits held to a band around the bf16 pool's;
 5. spawns four rank processes at tensor-parallel world 4, rank r on card
    ``r % device_count`` (four ranks share the card when there is one; the
    GPU then time-slices their contexts), which map each other's
@@ -43,6 +47,9 @@ then, on the card:
    against their plain versions at the Qwen3-8B world-4 shapes and at the
    edges, rows 18 and 19 bitwise equal on every rank, each timed beside its
    bound and, when every rank has its own card, beside NCCL + cuBLAS;
+   (5a-q) the same with an fp8 and an int8 A (rows 16q-19q), bitwise
+   against the bf16-operand kernels on the dequantized A, and the four
+   entry points driven once with an fp8 A, counts held to AUTO's routes;
    (5a') rows 20 (ring and full mesh), 21 and 22 bitwise against their
    plain versions at the served messages (a decode step's all-reduces, a
    1500-row fp32 two-shot) and at the edges, the same bits on every rank,
@@ -84,6 +91,10 @@ then, on the card:
    then three through ``flash_attention_varlen_fn`` on a packed batch, the
    loss falling at every step and the counts as predicted;
 7. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+
+``python3 chip_smoke.py --quant-collectives`` runs phase 5a-q alone (rows
+16q-19q against their plain versions, timed, and their entry points),
+for the four-card measurement.
 
 It exits nonzero and prints no result when CUDA is unavailable, when run
 away from the repository, or when any phase fails.
@@ -180,6 +191,17 @@ SGD_STEP = 0.01
 FP32_KERNEL_TOL = 1e-4  # fp32 SIMT kernels vs fp32 plain versions, another summation order
 #: The training kernels (rows 4, 5 and 6).
 TRAIN_KERNELS = ("flash_attention_varlen", "flash_attention_bwd", "flash_attention_varlen_bwd")
+# Item E, the int8/fp8 format: the quantized paged pool's wires (fp8 first:
+# its numbers go into the kernels line), row 3b's walk, and rows 16q-19q
+# (the collective matmuls with a quantized A). The first decode step's
+# logits through a quantized pool stay within a sanity band of the bf16
+# pool's: max |diff| at most QUANT_LOGIT_BAND[wire] of max |logit| (the
+# format's per-element bound is 2^-4 of a row's absmax for fp8, 2^-7 for
+# int8; random weights at full depth carry it unevenly, so the band is a
+# bound on breakage, not on accuracy).
+QUANT_WIRES = ("fp8", "int8")
+QUANT_KERNELS = ("ag_gemm_fused_quant", "gemm_rs_fused_quant", "gemm_ar_fused_quant", "gemm_ar_ll_quant")
+QUANT_LOGIT_BAND = {"fp8": 0.5, "int8": 0.25}
 
 
 def log(msg: str) -> None:
@@ -251,7 +273,8 @@ _GEMM_WORDS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
 _MEGA_FAMILIES = (("qkv_partial", "fused_ln_qkv_rope"), ("qkv_epilogue", "fused_ln_qkv_rope"),
                   ("attn_back", "fused_attn_back"), ("oproj_partial", "fused_attn_back"),
                   ("mlp_tile", "fused_mlp_block"), ("mlp_reduce", "fused_mlp_block"),
-                  ("norm_head", "fused_norm_head"), ("paged_decode", "paged_flash_decode"),
+                  ("norm_head", "fused_norm_head"), ("paged_decode_quant", "paged_flash_decode_quant"),
+                  ("paged_decode", "paged_flash_decode"),
                   ("moe_tile", "fused_moe_block"), ("moe_reduce", "fused_moe_block"))
 # The kernels of the multi-rank layer all take tdt::Shmem first.
 _SHMEM_FAMILIES = (("ag_push", "ag_gemm_fused"), ("ag_gemm", "ag_gemm_fused"),
@@ -713,6 +736,81 @@ def check_paged_moe_kernels(dev, flush_buf) -> dict[str, dict]:
     return entries
 
 
+def check_quant_paged_kernel(dev, flush_buf) -> dict[str, dict]:
+    """Phase 2, item E (bf16): row 3b, the walk of an fp8 or int8 pool, at
+    row 3's shapes (both models' Hkv, B = 4, bs = 16, a shuffled table;
+    lengths 1/777/1500/2047, then 0/bs-1/bs/S) against its plain version
+    and bitwise against row 3 on the pool dequantized to bf16; timed beside
+    row 3 on that pool, its bound and gather + dequantize + SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.kernels.flash_decode import (
+        gather_paged_kv,
+        paged_decode_cost,
+        paged_decode_quant_reference,
+        paged_flash_decode,
+        paged_flash_decode_quant,
+    )
+    from triton_dist_tpu_torch.models import PRESETS
+    from triton_dist_tpu_torch.models.quant import dequantize_kv, quantize_kv_rows
+
+    cfg8b, cfg_moe = PRESETS["qwen3-8b"], PRESETS["qwen3-moe-30b-a3b"]
+    hq, d = cfg8b.num_q_heads, cfg8b.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    bf16 = torch.bfloat16
+    entries, err_max = {}, 0.0
+    for label, hkv in (("qwen3-8b", cfg8b.num_kv_heads), ("qwen3-moe-30b-a3b", cfg_moe.num_kv_heads)):
+        for lengths in (MEGA_LENGTHS, (0, PAGED_BS - 1, PAGED_BS, MAX_LEN)):
+            q, kp, vp, tables, lens = _shuffled_pool(gen, lengths, hq, hkv, d, dev)
+            for wire in QUANT_WIRES:
+                (kq, ks), (vq, vs) = quantize_kv_rows(kp, wire), quantize_kv_rows(vp, wire)
+                kd, vd = dequantize_kv(kq, ks, bf16), dequantize_kv(vq, vs, bf16)
+                kw = dict(k_scale=ks, v_scale=vs)
+                got_o, got_lse = paged_flash_decode_quant(q, kq, vq, tables, lens, return_lse=True, **kw)
+                want_o, want_lse = paged_decode_quant_reference(q, kq, vq, tables, lens, return_lse=True, **kw)
+                ref_o, ref_lse = paged_flash_decode(q, kd, vd, tables, lens, return_lse=True)
+                torch.cuda.synchronize()
+                err = close(got_o, want_o, BF16_ATOL, BF16_RTOL)
+                lse_err = close(got_lse, want_lse, LSE_ATOL, 0.0)
+                if not (torch.equal(got_o, ref_o) and torch.equal(got_lse, ref_lse)):
+                    raise AssertionError(f"paged_flash_decode_quant {label} {wire} lengths {lengths}: not bitwise "
+                                         "equal to paged_flash_decode on the pool dequantized to bf16")
+                err_max = max(err_max, err)
+                log(f"paged_flash_decode_quant {label} {wire} B={len(lengths)} lengths {list(lengths)}: max|o err| "
+                    f"{err:.3e}, max|lse err| {lse_err:.3e}; bitwise equal to row 3 on the dequantized pool")
+                if lengths != MEGA_LENGTHS:
+                    continue
+                mask = (torch.arange(MAX_LEN, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+                def library(kq=kq, ks=ks, vq=vq, vs=vs, mask=mask):
+                    kc = dequantize_kv(gather_paged_kv(kq, tables), gather_paged_kv(ks, tables), bf16)
+                    vc = dequantize_kv(gather_paged_kv(vq, tables), gather_paged_kv(vs, tables), bf16)
+                    return F.scaled_dot_product_attention(q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)
+
+                row3_ms = time_ms(lambda: paged_flash_decode(q, kd, vd, tables, lens), flush_buf)
+                kernel_ms = time_ms(lambda: paged_flash_decode_quant(q, kq, vq, tables, lens, **kw), flush_buf)
+                plain_ms = time_ms(lambda: paged_decode_quant_reference(q, kq, vq, tables, lens, **kw), flush_buf,
+                                   iters=5)
+                lib_ms = time_ms(library, flush_buf)
+                flops, nbytes = paged_decode_cost(q, kq, tables, lens, quantized=True)
+                b_ms, b_by = bound_ms(flops, nbytes)
+                row3_bound = bound_ms(*paged_decode_cost(q, kd, tables, lens))[0]
+                log(f"paged_flash_decode_quant {label} {wire} B={len(lengths)} Hq={hq} Hkv={hkv} D={d}: kernel_ms "
+                    f"{kernel_ms}, row 3 on the bf16 pool {row3_ms}, plain_ms {plain_ms}, library_ms(gather + "
+                    f"dequantize + SDPA) {lib_ms}, bound_ms {b_ms} ({b_by}; {nbytes} bytes; row 3's {row3_bound}, "
+                    f"ratio {b_ms / row3_bound:.4f})")
+                if label == "qwen3-8b" and wire == QUANT_WIRES[0]:
+                    entries["paged_flash_decode_quant"] = dict(
+                        name="paged_flash_decode_quant", route="cuda",
+                        source="triton_dist_tpu_torch/csrc/flash_decode.cu",
+                        replaces="triton_dist_tpu/kernels/flash_decode.py:275", ms=kernel_ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    entries["paged_flash_decode_quant"]["max_abs_err"] = err_max
+    log(f"card after row 3b (clocks.sm, power.draw, temperature): {smi_sample()}")
+    return entries
+
+
 # ------------------------------- 2b. the training kernels vs plain versions
 
 def _sgd_rates(params, sq_norms=None) -> list[float]:
@@ -929,6 +1027,8 @@ def parity_fp32(dev) -> None:
     import torch
 
     from triton_dist_tpu_torch.models import PRESETS, DenseLLM, DenseParams, Engine, ModelConfig, Qwen3MoE, init_params
+    from triton_dist_tpu_torch.models.quant import ERROR_BOUND as QUANT_ERROR_BOUND
+    from triton_dist_tpu_torch.models.quant import dequantize_kv
 
     def on_card(p):
         return DenseParams(**{k: None if t is None else t.to(dev) for k, t in vars(p).items()})
@@ -1027,9 +1127,13 @@ def parity_fp32(dev) -> None:
         f"max|err| {err_logits:.3e}")
 
     # The paged pool: test-moe and test-dense on mega, test-dense on dist;
-    # slot 1 free, staggered prompts, chunked prefill.
-    for preset, cls, backend in (("test-moe", Qwen3MoE, "mega"), ("test-dense", DenseLLM, "mega"),
-                                 ("test-dense", DenseLLM, "dist")):
+    # slot 1 free, staggered prompts, chunked prefill; then the same through
+    # fp8 and int8 pools (item E: row 3b on mega, the gather bounce on
+    # dist), with one more step's logits on mega.
+    paged_runs = [("test-moe", Qwen3MoE, "mega", None), ("test-dense", DenseLLM, "mega", None),
+                  ("test-dense", DenseLLM, "dist", None)]
+    paged_runs += [(preset, cls, backend, wire) for wire in QUANT_WIRES for preset, cls, backend, _ in paged_runs]
+    for preset, cls, backend, wire in paged_runs:
         cfg = PRESETS[preset]
         p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED + 6), "cpu")
         prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=torch.Generator().manual_seed(SEED + n))
@@ -1038,19 +1142,30 @@ def parity_fp32(dev) -> None:
         runs = []
         for model in (cls(cfg, p_cpu, device="cpu"), cls(cfg, on_card(p_cpu), device=dev)):
             engine = Engine(model, backend=backend, max_len=64)
-            paged, tokens, _, logits = paged_prefill(engine, prompts, 6, block_size=8, chunk=8)
-            out, _, paged, _ = engine.decode_steps_paged(paged, tokens, torch.tensor([6, 0, 4]), 6)
-            runs.append((out.cpu(), paged.lengths.cpu().tolist(), [lg.cpu() for lg in logits],
-                         paged.k[:, 1:].cpu()))
+            paged, tokens, _, logits = paged_prefill(engine, prompts, 7, block_size=8, chunk=8, quant=wire)
+            out, last, paged, _ = engine.decode_steps_paged(paged, tokens, torch.tensor([6, 0, 4]), 6)
+            if backend == "mega":
+                step, _, _ = model.decode_mega_paged(engine._mega_paged_step, engine._mega_layers, last,
+                                                     *paged.pool_pair(), paged.tables, paged.lengths,
+                                                     paged.lengths > 0)
+                logits = [*logits, step[::2]]
+            pool = paged.k[:, 1:] if wire is None else dequantize_kv(paged.k, paged.k_scale)[:, 1:]
+            runs.append((out.cpu(), paged.lengths.cpu().tolist(), [lg.cpu() for lg in logits], pool.cpu()))
         (o_cpu, n_cpu, lg_cpu, k_cpu), (o_gpu, n_gpu, lg_gpu, k_gpu) = runs
+        tag = f"{preset} {backend} paged{'' if wire is None else ', ' + wire + ' pool'}"
         if not torch.equal(o_gpu, o_cpu) or not n_gpu == n_cpu == [21 + 6, 0, 9 + 4]:
-            raise AssertionError(f"{preset} {backend} paged decode differs:\ncuda {o_gpu.tolist()} {n_gpu}\n"
+            raise AssertionError(f"{tag} decode differs:\ncuda {o_gpu.tolist()} {n_gpu}\n"
                                  f"cpu  {o_cpu.tolist()} {n_cpu}")
         err_logits = max(close(g, c, FP32_LOGITS_TOL, FP32_LOGITS_TOL) for g, c in zip(lg_gpu, lg_cpu))
-        err_kv = close(k_gpu, k_cpu, FP32_LOGITS_TOL, FP32_LOGITS_TOL)
-        log(f"parity fp32 {preset} {backend} paged (bs 8, prompts 21/-/9 in chunks of 8, 6 steps): prefill "
-            f"logits max|err| {err_logits:.3e}, pool max|err| {err_kv:.3e} (tol {FP32_LOGITS_TOL}); tokens "
-            f"equal, slot 1 free")
+        # A quantized row holds the format's rounding of its fp32 value: one
+        # step of the grid apart where the card's and the CPU's fp32 values
+        # sit on either side of a rounding edge, so the pool is compared at
+        # the format's bound.
+        kv_tol = FP32_LOGITS_TOL if wire is None else QUANT_ERROR_BOUND[wire] * k_cpu.abs().max().item()
+        err_kv = close(k_gpu, k_cpu, kv_tol, FP32_LOGITS_TOL)
+        log(f"parity fp32 {tag} (bs 8, prompts 21/-/9 in chunks of 8, 6 steps): prefill "
+            f"{'and next-step ' if backend == 'mega' else ''}logits max|err| {err_logits:.3e} (tol "
+            f"{FP32_LOGITS_TOL}), pool max|err| {err_kv:.3e} (tol {kv_tol:.3e}); tokens equal, slot 1 free")
 
 
 def parity_grads_fp32(dev) -> None:
@@ -1122,9 +1237,10 @@ def parity_grads_fp32(dev) -> None:
 
 # ----------------------------------------------- 4. full-width serving
 
-def paged_prefill(engine, prompts, steps: int, *, block_size: int, chunk: int):
+def paged_prefill(engine, prompts, steps: int, *, block_size: int, chunk: int, quant: str | None = None):
     """Join ``prompts`` ((1, P) id tensors; None leaves a slot free) into a
-    fresh pool of ``engine``: each slot's chain comes from a
+    fresh pool of ``engine`` (quantized when ``quant`` is set; the same
+    block count either way): each slot's chain comes from a
     ``BlockAllocator`` (room for ``steps`` more rows), its prompt goes
     through ``prefill_chunk`` in chunks of ``min(chunk, P)`` (the last one
     padded) and ``complete_paged_prefill``; the tables and lengths are set
@@ -1137,7 +1253,7 @@ def paged_prefill(engine, prompts, steps: int, *, block_size: int, chunk: int):
 
     b, dev = len(prompts), engine.device
     mb = -(-engine.max_len // block_size)
-    paged = engine.alloc_paged(b, block_size=block_size, num_blocks=1 + b * mb)
+    paged = engine.alloc_paged(b, block_size=block_size, num_blocks=1 + b * mb, quant=quant)
     alloc = BlockAllocator(paged.num_blocks)
     tokens, ttft, last_logits = [0] * b, [], []
     for slot, ids in enumerate(prompts):
@@ -1164,15 +1280,16 @@ def paged_prefill(engine, prompts, steps: int, *, block_size: int, chunk: int):
     return paged, torch.tensor(tokens, dtype=torch.int32, device=dev), ttft, last_logits
 
 
-def expected_paged_launches(cfg, chunks: int, steps: int) -> dict[str, int]:
+def expected_paged_launches(cfg, chunks: int, steps: int, quant: str | None = None) -> dict[str, int]:
     """A paged mega run: one flash_attention per layer per prefill chunk
     (and, for a MoE model, one group_gemm_swiglu: chunks route through
     TP_MoE), and per decode step one fused_ln_qkv_rope, paged_flash_decode
-    and fused_moe_block / fused_mlp_block per layer, one fused_norm_head."""
+    (paged_flash_decode_quant, row 3b, through a quantized pool) and
+    fused_moe_block / fused_mlp_block per layer, one fused_norm_head."""
     layers = cfg.num_layers
     want = {name: 0 for name in expected_launches(cfg, "mega", 0, 0)}
-    want.update(flash_attention=layers * chunks, fused_ln_qkv_rope=layers * steps,
-                paged_flash_decode=layers * steps, fused_norm_head=steps)
+    want.update(flash_attention=layers * chunks, fused_ln_qkv_rope=layers * steps, fused_norm_head=steps)
+    want["paged_flash_decode" if quant is None else "paged_flash_decode_quant"] = layers * steps
     if cfg.is_moe:
         want.update(group_gemm_swiglu=layers * chunks, fused_moe_block=layers * steps)
     else:
@@ -1180,35 +1297,36 @@ def expected_paged_launches(cfg, chunks: int, steps: int) -> dict[str, int]:
     return want
 
 
-def serve_paged_full_width(model, preset: str, dev) -> tuple[dict[str, int], object]:
+def serve_paged_full_width(model, preset: str, dev, quant: str | None = None):
     """The four requests of ``serve_full_width`` on ``Engine(model,
-    backend="mega")`` through a paged pool: chains from a
-    ``BlockAllocator``, each prompt through ``paged_kbuf_zeros``,
-    ``prefill_chunk`` (chunks of ``PAGED_CHUNK``) and
-    ``complete_paged_prefill``, then ``DECODE_STEPS`` steps of
-    ``decode_steps_paged``. The launch counts are read around exactly that
-    run and must equal ``expected_paged_launches``. Returns the counts and
-    the engine."""
+    backend="mega")`` through a paged pool (quantized when ``quant`` is
+    set, with the same block count): chains from a ``BlockAllocator``, each
+    prompt through ``paged_kbuf_zeros``, ``prefill_chunk`` (chunks of
+    ``PAGED_CHUNK``) and ``complete_paged_prefill``, then ``DECODE_STEPS``
+    steps of ``decode_steps_paged``. The launch counts are read around
+    exactly that run and must equal ``expected_paged_launches``. Returns
+    the counts, the engine and the decoded tokens."""
     import torch
 
     from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
     from triton_dist_tpu_torch.models import Engine
 
     cfg = model.config
-    tag = f"{preset} [mega, paged]"
+    tag = f"{preset} [mega, paged{'' if quant is None else ', ' + quant + ' pool'}]"
     torch.cuda.reset_peak_memory_stats()
     engine = Engine(model, backend="mega", max_len=MAX_LEN)
     tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=tgen, device=dev) for n in FLASH_PROMPTS]
     # Warm-up (library handles, the new kernels' first launches), uncounted.
-    warm, tok, _, _ = paged_prefill(engine, [prompts[0][:, :32]], 2, block_size=PAGED_BS, chunk=PAGED_CHUNK)
+    warm, tok, _, _ = paged_prefill(engine, [prompts[0][:, :32]], 2, block_size=PAGED_BS, chunk=PAGED_CHUNK,
+                                    quant=quant)
     engine.decode_steps_paged(warm, tok, torch.tensor([2]), 2)
     del warm
     torch.cuda.synchronize()
 
     reset_launch_counts()
     paged, tokens0, ttft, _ = paged_prefill(engine, prompts, DECODE_STEPS, block_size=PAGED_BS,
-                                            chunk=PAGED_CHUNK)
+                                            chunk=PAGED_CHUNK, quant=quant)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, last, paged, rem = engine.decode_steps_paged(paged, tokens0, torch.full((4,), DECODE_STEPS), DECODE_STEPS)
@@ -1217,7 +1335,7 @@ def serve_paged_full_width(model, preset: str, dev) -> tuple[dict[str, int], obj
     launches = launch_counts()
 
     chunks = sum(-(-n // min(PAGED_CHUNK, n)) for n in FLASH_PROMPTS)
-    want = expected_paged_launches(cfg, chunks, DECODE_STEPS)
+    want = expected_paged_launches(cfg, chunks, DECODE_STEPS, quant)
     if launches != want:
         raise AssertionError(f"{tag}: launches on the served path {launches}, expected {want}")
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
@@ -1226,15 +1344,17 @@ def serve_paged_full_width(model, preset: str, dev) -> tuple[dict[str, int], obj
     if paged.lengths.tolist() != want_len or rem.tolist() != [0] * 4:
         raise AssertionError(f"{tag}: slot lengths {paged.lengths.tolist()} != {want_len}")
     active = torch.ones(4, dtype=torch.bool, device=dev)
-    step_logits, _, _ = model.decode_mega_paged(engine._mega_paged_step, engine._mega_layers, last, paged.k,
-                                                paged.v, paged.tables, paged.lengths, active)
+    step_logits, _, _ = model.decode_mega_paged(engine._mega_paged_step, engine._mega_layers, last,
+                                                *paged.pool_pair(), paged.tables, paged.lengths, active)
     if not bool(torch.isfinite(step_logits).all()):
         raise AssertionError(f"{tag}: non-finite logits at full width")
     for n, t in zip(FLASH_PROMPTS, ttft):
         log(f"{tag} request prompt={n} ({-(-n // min(PAGED_CHUNK, n))} chunks): TTFT {t:.2f} ms")
+    bf16_gib = 2 * cfg.num_layers * cfg.num_kv_heads * PAGED_BS * cfg.head_dim * 2 * paged.num_blocks / 2**30
     log(f"{tag} decode_steps_paged B=4 bs={PAGED_BS}, {DECODE_STEPS} steps: {decode_ms:.2f} ms/step "
         f"({4 * 1e3 / decode_ms:.1f} tokens/s); pool {paged.num_blocks} blocks, "
-        f"{paged.bytes_per_block * paged.num_blocks / 2**30:.2f} GiB")
+        f"{paged.bytes_per_block * paged.num_blocks / 2**30:.4f} GiB ({paged.bytes_per_block} bytes a block; "
+        f"the bf16 pool of as many blocks: {bf16_gib:.4f} GiB)")
     log(f"{tag} launches on the served path ({chunks} prefill chunks, {DECODE_STEPS} decode steps): {launches}")
     log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first tokens "
         f"{tokens0.tolist()}, decode row 0 {out[0, :8].tolist()}")
@@ -1249,7 +1369,40 @@ def serve_paged_full_width(model, preset: str, dev) -> tuple[dict[str, int], obj
         log(f"{tag} profile decode_steps_paged B=4: profiled wall {wall / 4:.2f} ms/step, device busy "
             f"{busy / 4:.3f} ms/step ({100 * busy / wall:.1f} % of the profiled wall; the unprofiled run took "
             f"{decode_ms:.2f} ms/step), {n_kernels / 4:.0f} kernels/step; by kernel family per step: {shares}")
-    return launches, engine
+    return launches, engine, out
+
+
+def compare_quant_pools(model, preset: str, dev, engine, streams: dict) -> None:
+    """The first decode step of the four requests through a bf16 pool and
+    through each quantized pool (fresh prefills, the same first tokens),
+    held to ``QUANT_LOGIT_BAND``; and how many decoded tokens of each
+    quantized run equal the bf16 pool's (``streams``, by wire; reported
+    only: with random weights an argmax margin can sit inside the
+    format's error)."""
+    import torch
+
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = [torch.randint(0, model.config.vocab_size, (1, n), generator=tgen, device=dev) for n in FLASH_PROMPTS]
+    active = torch.ones(len(prompts), dtype=torch.bool, device=dev)
+    logits = {}
+    for wire in (None, *[w for w in QUANT_WIRES if w in streams]):
+        paged, tokens, _, _ = paged_prefill(engine, prompts, 1, block_size=PAGED_BS, chunk=PAGED_CHUNK, quant=wire)
+        logits[wire], _, _ = model.decode_mega_paged(engine._mega_paged_step, engine._mega_layers, tokens,
+                                                     *paged.pool_pair(), paged.tables, paged.lengths, active)
+        del paged
+    scale = logits[None].abs().max().item()
+    for wire, out in streams.items():
+        if wire is None:
+            continue
+        diff = (logits[wire] - logits[None]).abs().max().item()
+        same = (logits[wire].argmax(-1) == logits[None].argmax(-1)).tolist()
+        equal = int((out == streams[None]).sum())
+        log(f"{preset} first decode step, {wire} pool vs bf16 pool (mega, B=4): max |logit diff| {diff}, "
+            f"max |logit| {scale} (band {QUANT_LOGIT_BAND[wire]} of it), greedy tokens equal {sum(same)}/{len(same)}; "
+            f"over the {DECODE_STEPS}-step streams {equal}/{out.numel()} tokens equal the bf16 pool's")
+        if not bool(torch.isfinite(logits[wire]).all()) or diff > QUANT_LOGIT_BAND[wire] * scale:
+            raise AssertionError(f"{preset} {wire} pool: first-step logits outside the band ({diff} vs {scale})")
+
 
 def build_full_width(preset: str, model_cls, dev):
     """``preset`` at full width and depth with random bf16 weights from a
@@ -1283,13 +1436,14 @@ def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str,
         "flash_attention": layers * prefills,
         "flash_decode": 0 if mega else layers * steps,
         "paged_flash_decode": 0,
+        "paged_flash_decode_quant": 0,
         "group_gemm_swiglu": layers * (prefills + (0 if mega else steps)) if cfg.is_moe else 0,
         "fused_ln_qkv_rope": layers * steps if mega else 0,
         "fused_attn_back": layers * steps if mega else 0,
         "fused_mlp_block": layers * steps if mega and not cfg.is_moe else 0,
         "fused_norm_head": steps if mega else 0,
         "fused_moe_block": layers * steps if mega and cfg.is_moe else 0,
-        **{name: 0 for name in COLLECTIVE_KERNELS + EP_KERNELS + STANDALONE_KERNELS},  # world 1: no collective
+        **{name: 0 for name in COLLECTIVE_KERNELS + EP_KERNELS + STANDALONE_KERNELS + QUANT_KERNELS},  # world 1
         **{name: 0 for name in TRAIN_KERNELS},  # serving runs no training kernel
     }
 
@@ -1705,6 +1859,195 @@ def check_collective_kernels(ctx, flush_buf, nccl) -> dict[str, dict]:
         bound_by=b_by, library_ms=lib_ms, max_abs_err=0.0)
     ctx.check_status()
     return entries
+
+
+def check_quant_collective_kernels(ctx, flush_buf, nccl) -> dict[str, dict]:
+    """5a-q, item E: rows 16q-19q (a quantized A: fp8, then int8, bf16
+    weights) at 5a's Qwen3-8B world-4 shapes against their plain versions,
+    and bitwise against the bf16-operand kernels on the A dequantized into
+    bf16 (their tiles dequantize exactly); rows 18q and 19q the same bits on
+    every rank. Each timed case beside its bf16-operand form, its bound
+    (the A read as 1-byte payload and a 4-byte scale a row) and, with a
+    card a rank, NCCL + cuBLAS on the dequantized operand. The fp8 numbers
+    go into the kernels line."""
+    import torch
+    import torch.distributed as dist
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as ag
+    from triton_dist_tpu_torch.kernels import gemm_allreduce as ar
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+    from triton_dist_tpu_torch.models import PRESETS
+    from triton_dist_tpu_torch.models.quant import dequantize_tensor, quantize_tensor
+
+    c = PRESETS["qwen3-8b"]
+    w, me, dev = ctx.world, ctx.rank, ctx.device
+    d = c.hidden_size
+    n_qkv = (c.num_q_heads + 2 * c.num_kv_heads) * c.head_dim // w
+    ff_l, k_o = c.intermediate_size // w, c.num_q_heads * c.head_dim // w
+    bf16 = torch.bfloat16
+    entries, errs = {}, {name: 0.0 for name in QUANT_KERNELS}
+    for wire in QUANT_WIRES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 19)  # the same draws on every rank
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf16)
+
+        def quant(*shape):
+            a = quantize_tensor(torch.randn(shape, generator=gen, device=dev)[me], wire)
+            return a, dequantize_tensor(a, bf16)
+
+        def record(name, source, replaces, kernel, plain, bf16_form, library, cost):
+            bf16_ms = time_collective(ctx, bf16_form, flush_buf)
+            e = timed_entry(ctx, flush_buf, name, source, replaces, kernel, plain, library, cost,
+                            library_name="NCCL + cuBLAS on the dequantized A")
+            rlog(ctx, f"{name} {wire}: the bf16-operand form on the dequantized A {bf16_ms} ms against the "
+                      f"quant form's {e['ms']} ms")
+            if wire == QUANT_WIRES[0]:
+                entries[name] = e
+
+        def bitwise(got, same_as, what):
+            if not torch.equal(got.view(torch.uint8), same_as.view(torch.uint8)):
+                raise AssertionError(f"{what}: not the bf16-operand kernel's bits on the dequantized A")
+
+        src = "triton_dist_tpu_torch/csrc/collective_gemm.cu"
+        # Row 16q. (label, m_shard, n, swiglu, timed)
+        for label, m, n, swiglu, timed in (("wqkv S=1500", 375, n_qkv, False, False),
+                                           ("gate/up S=1500", 375, ff_l, True, True),
+                                           ("edge m_shard=33", 33, n_qkv, False, False),
+                                           ("edge m_shard=1", 1, ff_l, True, False)):
+            a, a_deq = quant(w, m, d)
+            bs = tuple(randn(d, n, scale=d ** -0.5) for _ in range(2 if swiglu else 1))
+            got = ag.ag_gemm_fused_quant(ctx, a, bs)
+            plain = ag.ag_gemm_quant_reference(ctx, a, bs)
+            same_as = ag.ag_gemm_fused(ctx, a_deq, bs)
+            torch.cuda.synchronize()
+            err = close(got, plain, BF16_ATOL, BF16_RTOL)
+            bitwise(got, same_as, f"ag_gemm_fused_quant {wire} {label}")
+            errs["ag_gemm_fused_quant"] = max(errs["ag_gemm_fused_quant"], err)
+            rlog(ctx, f"ag_gemm_fused_quant {wire} {label} (m_shard {m}, k {d}, n {n}): max|err| {err:.3e}; "
+                      "bitwise equal to the bf16-operand kernel on the dequantized A")
+            if timed:
+                def library(a_deq=a_deq, bs=bs, m=m):
+                    g = torch.empty((w * m, d), dtype=bf16, device=dev)
+                    dist.all_gather_into_tensor(g, a_deq, group=nccl)
+                    return torch.mm(g, torch.cat(bs, dim=1))
+                record("ag_gemm_fused_quant", src, "triton_dist_tpu/kernels/allgather_gemm.py:338",
+                       lambda: ag.ag_gemm_fused_quant(ctx, a, bs), lambda: ag.ag_gemm_quant_reference(ctx, a, bs),
+                       lambda: ag.ag_gemm_fused(ctx, a_deq, bs), library if nccl is not None else None,
+                       ag.ag_gemm_cost(m, d, n, w, len(bs), 2, a_row_bytes=d + 4))
+
+        # Row 17q: RS(A @ B) by rows.
+        for label, m, k, timed in (("wo S=1500", 1500, k_o, False), ("down S=1500", 1500, ff_l, True),
+                                   ("edge m=4", 4, k_o, False)):
+            a, a_deq = quant(w, m, k)
+            b = randn(w, k, d, scale=(w * k) ** -0.5)[me].contiguous()
+            got = rs.gemm_rs_fused_quant(ctx, a, b)
+            plain = rs.gemm_rs_quant_reference(ctx, a, b)
+            same_as = rs.gemm_rs_fused(ctx, a_deq, b)
+            torch.cuda.synchronize()
+            err = close(got, plain, BF16_ATOL, BF16_RTOL)
+            bitwise(got, same_as, f"gemm_rs_fused_quant {wire} {label}")
+            errs["gemm_rs_fused_quant"] = max(errs["gemm_rs_fused_quant"], err)
+            rlog(ctx, f"gemm_rs_fused_quant {wire} {label} (m {m}, k {k}, n {d}): max|err| {err:.3e}; bitwise "
+                      "equal to the bf16-operand kernel on the dequantized A")
+            if timed:
+                def library(a_deq=a_deq, b=b, m=m):
+                    out = torch.empty((m // w, d), dtype=bf16, device=dev)
+                    dist.reduce_scatter_tensor(out, torch.mm(a_deq, b), group=nccl)
+                    return out
+                record("gemm_rs_fused_quant", src, "triton_dist_tpu/kernels/gemm_reduce_scatter.py:201",
+                       lambda: rs.gemm_rs_fused_quant(ctx, a, b), lambda: rs.gemm_rs_quant_reference(ctx, a, b),
+                       lambda: rs.gemm_rs_fused(ctx, a_deq, b), library if nccl is not None else None,
+                       rs.gemm_rs_cost(m, k, d, w, 2, a_row_bytes=k + 4))
+
+        # Rows 18q and 19q: AR(A @ B), the same bits on every rank.
+        for name, fn, bf16_fn, replaces, cases in (
+                ("gemm_ar_fused_quant", ar.gemm_ar_fused_quant, ar.gemm_ar_fused,
+                 "triton_dist_tpu/kernels/gemm_allreduce.py:143",
+                 (("wo S=1500", 1500, k_o, False), ("down S=1500", 1500, ff_l, True), ("edge m=68", 68, ff_l, False))),
+                ("gemm_ar_ll_quant", ar.gemm_ar_ll_quant, ar.gemm_ar_ll, "triton_dist_tpu/kernels/gemm_allreduce.py:501",
+                 (("wo B=4", 4, k_o, False), ("down B=4", 4, ff_l, True), ("edge m=3", 3, ff_l, False)))):
+            for label, m, k, timed in cases:
+                a, a_deq = quant(w, m, k)
+                b = randn(w, k, d, scale=(w * k) ** -0.5)[me].contiguous()
+                got = fn(ctx, a, b)
+                plain = ar.gemm_ar_quant_reference(ctx, a, b)
+                same_as = bf16_fn(ctx, a_deq, b)
+                torch.cuda.synchronize()
+                err = close(got, plain, BF16_ATOL, BF16_RTOL)
+                bitwise(got, same_as, f"{name} {wire} {label}")
+                if not _same_on_every_rank(ctx, got):
+                    raise AssertionError(f"{name} {wire} {label}: the ranks' outputs differ")
+                errs[name] = max(errs[name], err)
+                rlog(ctx, f"{name} {wire} {label} (m {m}, k {k}, n {d}): max|err| {err:.3e}; bitwise equal to the "
+                          "bf16-operand kernel on the dequantized A and on every rank")
+                if timed:
+                    def library(a_deq=a_deq, b=b):
+                        p = torch.mm(a_deq, b)
+                        dist.all_reduce(p, group=nccl)
+                        return p
+                    record(name, src, replaces, lambda fn=fn, a=a, b=b: fn(ctx, a, b),
+                           lambda a=a, b=b: ar.gemm_ar_quant_reference(ctx, a, b),
+                           lambda bf16_fn=bf16_fn, a_deq=a_deq, b=b: bf16_fn(ctx, a_deq, b),
+                           library if nccl is not None else None,
+                           ar.gemm_ar_cost(m, k, d, w, 2, ll=name == "gemm_ar_ll_quant", a_row_bytes=k + 4))
+    for name, err in errs.items():
+        entries[name]["max_abs_err"] = err
+    ctx.check_status()
+    return entries
+
+
+def quant_host_ops(ctx) -> dict[str, int]:
+    """5a-q as a path: the four collective matmuls driven once through
+    their entry points with a quantized A (fp8) and AUTO at the Qwen3-8B
+    world-4 prefill and decode shapes, the launch counts reset just before
+    and read just after: ``ag_gemm_swiglu_shard`` and ``ag_gemm_shard`` at
+    S = 1500 (rows 16q), ``gemm_rs_shard`` at S = 1500 (17q),
+    ``gemm_ar_shard`` at S = 1500 (18q) and at B = 4 (19q). Returns the
+    counts, held to AUTO's routes."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_shard, ag_gemm_swiglu_shard
+    from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_shard
+    from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs_shard
+    from triton_dist_tpu_torch.models import PRESETS
+    from triton_dist_tpu_torch.models.quant import quantize_tensor
+
+    c = PRESETS["qwen3-8b"]
+    w, dev = ctx.world, ctx.device
+    d, ff_l = c.hidden_size, c.intermediate_size // w
+    n_qkv = (c.num_q_heads + 2 * c.num_kv_heads) * c.head_dim // w
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20 + ctx.rank)
+
+    def weight(k, n):
+        return (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+
+    x = quantize_tensor(torch.randn((375, d), generator=gen, device=dev), QUANT_WIRES[0])
+    h = quantize_tensor(torch.randn((1500, ff_l), generator=gen, device=dev), QUANT_WIRES[0])
+    h4 = quantize_tensor(torch.randn((4, ff_l), generator=gen, device=dev), QUANT_WIRES[0])
+    wg, wu, wqkv, wd = weight(d, ff_l), weight(d, ff_l), weight(d, n_qkv), weight(ff_l, d)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [ag_gemm_swiglu_shard(ctx, x, wg, wu), ag_gemm_shard(ctx, x, wqkv), gemm_rs_shard(ctx, h, wd),
+            gemm_ar_shard(ctx, h, wd), gemm_ar_shard(ctx, h4, wd)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {name: 0 for name in KERNELS}
+    want.update(ag_gemm_fused_quant=2, gemm_rs_fused_quant=1, gemm_ar_fused_quant=1, gemm_ar_ll_quant=1)
+    if launches != want:
+        raise AssertionError(f"5a-q host ops: launches {launches}, expected {want}")
+    shapes = [(1500, ff_l), (1500, n_qkv), (375, d), (1500, d), (4, d)]
+    if [tuple(o.shape) for o in outs] != shapes or not all(o.dtype == torch.bfloat16 for o in outs):
+        raise AssertionError(f"5a-q host ops: shapes {[tuple(o.shape) for o in outs]}, expected {shapes} bf16")
+    if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+        raise AssertionError("5a-q host ops: non-finite results")
+    if not (_same_on_every_rank(ctx, outs[3]) and _same_on_every_rank(ctx, outs[4])):
+        raise AssertionError("5a-q host ops: the all-reduced outputs differ between the ranks")
+    ctx.check_status()
+    rlog(ctx, f"5a-q host ops ({QUANT_WIRES[0]} A; ag_gemm_swiglu_shard, ag_gemm_shard, gemm_rs_shard, "
+              f"gemm_ar_shard x2; AUTO): launches { {k: v for k, v in launches.items() if v} } as predicted")
+    return launches
 
 
 def check_standalone_collectives(ctx, flush_buf, nccl) -> dict[str, dict]:
@@ -2883,9 +3226,10 @@ def train_world4(ctx) -> dict[str, int]:
     return total
 
 
-def _rank_main(rank: int, port: int, results) -> None:
-    """One rank of phase 5, in its own process: 5a-5h, then the abort test.
-    Any failure reaches the parent as an error and a nonzero exit."""
+def _rank_main(rank: int, port: int, results, quant_only: bool = False) -> None:
+    """One rank of phase 5, in its own process: 5a-5h, then the abort test
+    (with ``quant_only``, 5a-q alone). Any failure reaches the parent as an
+    error and a nonzero exit."""
     import traceback
 
     try:
@@ -2905,9 +3249,19 @@ def _rank_main(rank: int, port: int, results) -> None:
         nccl = None if shared else dist.new_group(backend="nccl")  # the yardstick's; the port never uses it
         flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=ctx.device)
         steps = EP_STEPS_SHARED if shared else EP_STEPS_OWN
+        if quant_only:
+            entries = check_quant_collective_kernels(ctx, flush_buf, nccl)
+            results.put((rank, "ok", {"entries": entries, "quant_op_launches": quant_host_ops(ctx)}))
+            ctx.heap.close()
+            dist.destroy_process_group()
+            return
         t0 = time.perf_counter()
         entries = check_collective_kernels(ctx, flush_buf, nccl)
         rlog(ctx, f"5a (rows 16-19 and the barrier vs plain, timed): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entries.update(check_quant_collective_kernels(ctx, flush_buf, nccl))
+        quant_op_launches = quant_host_ops(ctx)
+        rlog(ctx, f"5a-q (rows 16q-19q vs plain, timed; their entry points): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         entries.update(check_standalone_collectives(ctx, flush_buf, nccl))
         host_op_launches = standalone_host_ops(ctx)
@@ -2951,7 +3305,8 @@ def _rank_main(rank: int, port: int, results) -> None:
         abort_world4(ctx)
         ctx.host_barrier()
         results.put((rank, "ok", {"entries": entries, "launches": launches, "mega_launches": mega_launches,
-                                  "host_op_launches": host_op_launches, "ep_launches": ep_launches,
+                                  "host_op_launches": host_op_launches, "quant_op_launches": quant_op_launches,
+                                  "ep_launches": ep_launches,
                                   "tp_moe_launches": tp_moe_launches, "tp_moe_mega_launches": tp_moe_mega_launches,
                                   "train_launches": train_launches}))
         ctx.heap.close()
@@ -2964,12 +3319,13 @@ def _rank_main(rank: int, port: int, results) -> None:
         os._exit(1)
 
 
-def run_world4(timeout_s: float) -> tuple[dict[str, dict], list[dict[str, int]]]:
+def run_world4(timeout_s: float, quant_only: bool = False) -> tuple[dict[str, dict], list[dict[str, int]]]:
     """Phase 5: four rank processes, rank r on card ``r % device_count``
     (the kernels are built already). Returns rank 0's kernel entries (the
     max |error| over the ranks) and the launch counts of its runs (5c, 5c',
-    the host ops of 5a', 5f, 5h on dist and on mega, 5g). Raises if any
-    rank fails or the phase outlives ``timeout_s``."""
+    the host ops of 5a' and 5a-q, 5f, 5h on dist and on mega, 5g; with
+    ``quant_only``, 5a-q's alone). Raises if any rank fails or the phase
+    outlives ``timeout_s``."""
     import multiprocessing as mp
     import queue
     import socket
@@ -2985,7 +3341,7 @@ def run_world4(timeout_s: float) -> tuple[dict[str, dict], list[dict[str, int]]]
         port = sock.getsockname()[1]
     spawn = mp.get_context("spawn")
     results = spawn.Queue()
-    procs = [spawn.Process(target=_rank_main, args=(r, port, results)) for r in range(WORLD)]
+    procs = [spawn.Process(target=_rank_main, args=(r, port, results, quant_only)) for r in range(WORLD)]
     for p in procs:
         p.start()
     got = {}
@@ -3012,8 +3368,10 @@ def run_world4(timeout_s: float) -> tuple[dict[str, dict], list[dict[str, int]]]
             if p.is_alive():
                 p.kill()
                 p.join()
-    keys = ("launches", "mega_launches", "host_op_launches", "ep_launches", "tp_moe_launches",
+    keys = ("launches", "mega_launches", "host_op_launches", "quant_op_launches", "ep_launches", "tp_moe_launches",
             "tp_moe_mega_launches", "train_launches")
+    if quant_only:
+        keys = ("quant_op_launches",)
     for key in keys:
         if any(got[r][key] != got[0][key] for r in got):
             raise AssertionError(f"phase 5: the ranks' launch counts differ ({key})")
@@ -3132,11 +3490,20 @@ def main() -> int:
         log(f"  ptxas {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
             f"spill stores {spills} bytes in all")
 
+    if sys.argv[1:] == ["--quant-collectives"]:
+        # Phase 5a-q alone (rows 16q-19q and their entry points at world 4):
+        # the four-card measurement, which needs nothing else of the script.
+        entries, runs = run_world4(timeout_s=W4_TIMEOUT_S, quant_only=True)
+        print(json.dumps({"kernels": [dict(entries[name], launches=runs[0][name]) for name in QUANT_KERNELS]}),
+              flush=True)
+        print(json.dumps({"ok": True, "device": device_report()}), flush=True)
+        return 0
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     t_phase = time.perf_counter()
     entries = check_kernels(dev, flush_buf)
     entries.update(check_mega_kernels(dev, flush_buf))
     entries.update(check_paged_moe_kernels(dev, flush_buf))
+    entries.update(check_quant_paged_kernel(dev, flush_buf))
     entries.update(check_training_kernels(dev, flush_buf))
     del flush_buf
     gc.collect()
@@ -3155,9 +3522,15 @@ def main() -> int:
     runs = [serve_full_width(model, "qwen3-8b", "dist", dev, serve_rows=2, serve_prompt=128, serve_gen=16)]
     runs.append(serve_full_width(model, "qwen3-8b", "mega", dev, serve_rows=2, serve_prompt=128, serve_gen=16,
                                  profile_prefill=False))
-    paged_launches, paged_engine = serve_paged_full_width(model, "qwen3-8b", dev)
+    paged_launches, paged_engine, streams = serve_paged_full_width(model, "qwen3-8b", dev)
     runs.append(paged_launches)
     compare_first_step(model, dev, paged_engine)
+    streams = {None: streams}
+    for wire in QUANT_WIRES:  # item E: the same run through fp8 and int8 pools
+        quant_launches, quant_engine, streams[wire] = serve_paged_full_width(model, "qwen3-8b", dev, quant=wire)
+        runs.append(quant_launches)
+        del quant_engine
+    compare_quant_pools(model, "qwen3-8b", dev, paged_engine, streams)
     del model, paged_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3167,8 +3540,13 @@ def main() -> int:
     model = build_full_width("qwen3-moe-30b-a3b", Qwen3MoE, dev)
     runs.append(serve_full_width(model, "qwen3-moe-30b-a3b", "dist", dev, serve_rows=8, serve_prompt=64,
                                  serve_gen=8))
-    runs.append(serve_paged_full_width(model, "qwen3-moe-30b-a3b", dev)[0])
-    del model
+    paged_launches, paged_engine, bf16_stream = serve_paged_full_width(model, "qwen3-moe-30b-a3b", dev)
+    runs.append(paged_launches)
+    quant_launches, quant_engine, fp8_stream = serve_paged_full_width(model, "qwen3-moe-30b-a3b", dev, quant="fp8")
+    runs.append(quant_launches)
+    del quant_engine
+    compare_quant_pools(model, "qwen3-moe-30b-a3b", dev, paged_engine, {None: bf16_stream, "fp8": fp8_stream})
+    del model, paged_engine
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 4 qwen3-moe-30b-a3b: {time.perf_counter() - t_phase:.1f} s")
@@ -3185,7 +3563,8 @@ def main() -> int:
     # --------------------------------------------------------- 7. results
     kernels = []
     for name in ("flash_attention", *TRAIN_KERNELS, "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS,
-                 "paged_flash_decode", "fused_moe_block", *COLLECTIVE_KERNELS, *EP_KERNELS, *STANDALONE_KERNELS):
+                 "paged_flash_decode", "paged_flash_decode_quant", "fused_moe_block", *COLLECTIVE_KERNELS,
+                 *QUANT_KERNELS, *EP_KERNELS, *STANDALONE_KERNELS):
         e = dict(entries[name])
         e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -27,8 +27,10 @@ from triton_dist_tpu_torch.kernels import (
     flash_decode,
     group_gemm_swiglu,
     group_swiglu_reference,
+    paged_decode_quant_reference,
     paged_decode_reference,
     paged_flash_decode,
+    paged_flash_decode_quant,
     varlen_bwd_reference,
     varlen_reference,
 )
@@ -38,6 +40,7 @@ from triton_dist_tpu_torch.kernels.flash_decode import gather_paged_kv
 from triton_dist_tpu_torch.kernels.mega_moe import fused_moe_block, moe_block_reference
 from triton_dist_tpu_torch.models.kv_cache import NULL_BLOCK
 from triton_dist_tpu_torch.models import PRESETS, DenseLLM, DenseParams, Engine, Qwen3MoE, init_params
+from triton_dist_tpu_torch.models.quant import QuantPool, dequantize_kv, quantize_kv_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -57,9 +60,10 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
-def _assert_close(got, want, dtype):
+def _assert_close(got, want, dtype, what=None):
     atol, rtol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    msg = None if what is None else (lambda m: f"{what}: {m}")
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol, msg=msg)
 
 
 # (b, hq, hkv, sq, sk, d, causal, q_offset, kv_offset)
@@ -76,25 +80,26 @@ ATTN_CASES = {
 }
 
 
-@pytest.mark.parametrize("return_lse", [False, True], ids=["o", "o+lse"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("case", list(ATTN_CASES), ids=list(ATTN_CASES))
-def test_flash_attention_kernel_vs_plain(cuda, case, dtype, return_lse):
+def test_flash_attention_kernel_vs_plain(cuda, case, dtype):
+    """Each case with o alone and with o and lse, one launch each."""
     b, hq, hkv, sq, sk, d, causal, q_offset, kv_offset = ATTN_CASES[case]
     gen = torch.Generator(device=cuda).manual_seed(sum(map(ord, case)))
     q = _randn(gen, (b, hq, sq, d), dtype, cuda)
     k, v = _randn(gen, (b, hkv, sk, d), dtype, cuda), _randn(gen, (b, hkv, sk, d), dtype, cuda)
-    kw = dict(causal=causal, return_lse=return_lse, q_offset=q_offset, kv_offset=kv_offset)
-    before = flash_attention.launches
-    got = flash_attention(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    want = attention_reference(q, k, v, **kw)
-    if return_lse:
-        _assert_close(got[0], want[0], dtype)
-        torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-5)
-    else:
-        _assert_close(got, want, dtype)
+    for return_lse in (False, True):
+        kw = dict(causal=causal, return_lse=return_lse, q_offset=q_offset, kv_offset=kv_offset)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = attention_reference(q, k, v, **kw)
+        if return_lse:
+            _assert_close(got[0], want[0], dtype, "o+lse: o")
+            torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-5)
+        else:
+            _assert_close(got, want, dtype, "o")
 
 
 # (hq, hkv, t, d, cu_seqlens, q_offset, kv_offset): packed streams with a
@@ -409,72 +414,79 @@ def _counted(fn, *args, **kwargs):
     return out
 
 
-@pytest.mark.parametrize("b", MEGA_ROWS)
+# The four fused mega kernels below run each of MEGA_ROWS rows in turn,
+# each row count on inputs of its own seed.
+
+
 @pytest.mark.parametrize("size", list(MEGA_SIZES))
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
-def test_fused_ln_qkv_rope_kernel_vs_plain(cuda, dtype, size, b):
+def test_fused_ln_qkv_rope_kernel_vs_plain(cuda, dtype, size):
     d, _, hq, hkv, hd, _ = MEGA_SIZES[size]
-    gen = torch.Generator(device=cuda).manual_seed(b + d)
-    x = _randn(gen, (b, d), dtype, cuda)
-    ln_w, qn, kn = _norm_weight(gen, d, dtype, cuda), _norm_weight(gen, hd, dtype, cuda), _norm_weight(gen, hd, dtype, cuda)
-    wqkv = _weight(gen, (d, (hq + 2 * hkv) * hd), dtype, cuda)
-    pos = torch.tensor([0, 1, 777, 2047, 5, 100, 1500, 9][:b], dtype=torch.int32, device=cuda)
-    kw = dict(num_q_heads=hq, num_kv_heads=hkv, head_dim=hd, rope_theta=1e6, eps=1e-6)
-    got = _counted(mk.fused_ln_qkv_rope, x, ln_w, wqkv, qn, kn, pos, **kw)
-    want = mk.ln_qkv_rope_reference(x, ln_w, wqkv, qn, kn, pos, **kw)
-    for g, w in zip(got, want):
-        assert g.dtype == dtype and g.is_contiguous()
-        _assert_close(g, w, dtype)
+    for b in MEGA_ROWS:
+        gen = torch.Generator(device=cuda).manual_seed(b + d)
+        x = _randn(gen, (b, d), dtype, cuda)
+        ln_w = _norm_weight(gen, d, dtype, cuda)
+        qn, kn = _norm_weight(gen, hd, dtype, cuda), _norm_weight(gen, hd, dtype, cuda)
+        wqkv = _weight(gen, (d, (hq + 2 * hkv) * hd), dtype, cuda)
+        pos = torch.tensor([0, 1, 777, 2047, 5, 100, 1500, 9][:b], dtype=torch.int32, device=cuda)
+        kw = dict(num_q_heads=hq, num_kv_heads=hkv, head_dim=hd, rope_theta=1e6, eps=1e-6)
+        got = _counted(mk.fused_ln_qkv_rope, x, ln_w, wqkv, qn, kn, pos, **kw)
+        want = mk.ln_qkv_rope_reference(x, ln_w, wqkv, qn, kn, pos, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.is_contiguous()
+            _assert_close(g, w, dtype, f"b={b}")
 
 
-@pytest.mark.parametrize("b", MEGA_ROWS)
 @pytest.mark.parametrize("size", list(MEGA_SIZES))
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
-def test_fused_attn_back_kernel_vs_plain(cuda, dtype, size, b):
+def test_fused_attn_back_kernel_vs_plain(cuda, dtype, size):
     """Lengths 0, S - 1 and S (the full cache, where nothing is spliced)
     among the rows, against the plain splice → decode → o-projection."""
     d, _, hq, hkv, hd, _ = MEGA_SIZES[size]
     s = 128 if size == "test" else 2048
-    gen = torch.Generator(device=cuda).manual_seed(b + d + 1)
-    q = _randn(gen, (b, hq, hd), dtype, cuda)
-    kn, vn = _randn(gen, (b, hkv, hd), dtype, cuda), _randn(gen, (b, hkv, hd), dtype, cuda)
-    kc, vc = _randn(gen, (b, hkv, s, hd), dtype, cuda), _randn(gen, (b, hkv, s, hd), dtype, cuda)
-    wo = _weight(gen, (hq * hd, d), dtype, cuda)
-    lengths = torch.tensor([0, s - 1, s, 17, 1, s // 2, 3, s - 2][:b], dtype=torch.int32, device=cuda)
-    k_before, v_before = kc.clone(), vc.clone()
-    got = _counted(mk.fused_attn_back, q, kn, vn, kc, vc, lengths, wo)
-    assert got.dtype == torch.float32 and got.shape == (b, d)
-    assert torch.equal(kc, k_before) and torch.equal(vc, v_before)  # the caches are only read
-    _assert_close(got, mk.attn_back_reference(q, kn, vn, kc, vc, lengths, wo), dtype)
+    for b in MEGA_ROWS:
+        gen = torch.Generator(device=cuda).manual_seed(b + d + 1)
+        q = _randn(gen, (b, hq, hd), dtype, cuda)
+        kn, vn = _randn(gen, (b, hkv, hd), dtype, cuda), _randn(gen, (b, hkv, hd), dtype, cuda)
+        kc, vc = _randn(gen, (b, hkv, s, hd), dtype, cuda), _randn(gen, (b, hkv, s, hd), dtype, cuda)
+        wo = _weight(gen, (hq * hd, d), dtype, cuda)
+        lengths = torch.tensor([0, s - 1, s, 17, 1, s // 2, 3, s - 2][:b], dtype=torch.int32, device=cuda)
+        k_before, v_before = kc.clone(), vc.clone()
+        got = _counted(mk.fused_attn_back, q, kn, vn, kc, vc, lengths, wo)
+        assert got.dtype == torch.float32 and got.shape == (b, d)
+        assert torch.equal(kc, k_before) and torch.equal(vc, v_before)  # the caches are only read
+        _assert_close(got, mk.attn_back_reference(q, kn, vn, kc, vc, lengths, wo), dtype, f"b={b}")
 
 
-@pytest.mark.parametrize("b", MEGA_ROWS)
 @pytest.mark.parametrize("size", list(MEGA_SIZES))
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
-def test_fused_mlp_block_kernel_vs_plain(cuda, dtype, size, b):
+def test_fused_mlp_block_kernel_vs_plain(cuda, dtype, size):
     d, ff, *_ = MEGA_SIZES[size]
-    gen = torch.Generator(device=cuda).manual_seed(b + d + 2)
-    x = _randn(gen, (b, d), dtype, cuda)
-    ln_w = _norm_weight(gen, d, dtype, cuda)
-    wg, wu, wd = _weight(gen, (d, ff), dtype, cuda), _weight(gen, (d, ff), dtype, cuda), _weight(gen, (ff, d), dtype, cuda)
-    for residual in (False, True):
-        got = _counted(mk.fused_mlp_block, x, ln_w, wg, wu, wd, residual=residual)
-        assert got.dtype == dtype
-        _assert_close(got, mk.mlp_block_reference(x, ln_w, wg, wu, wd, residual=residual), dtype)
+    for b in MEGA_ROWS:
+        gen = torch.Generator(device=cuda).manual_seed(b + d + 2)
+        x = _randn(gen, (b, d), dtype, cuda)
+        ln_w = _norm_weight(gen, d, dtype, cuda)
+        wg, wu = _weight(gen, (d, ff), dtype, cuda), _weight(gen, (d, ff), dtype, cuda)
+        wd = _weight(gen, (ff, d), dtype, cuda)
+        for residual in (False, True):
+            got = _counted(mk.fused_mlp_block, x, ln_w, wg, wu, wd, residual=residual)
+            assert got.dtype == dtype
+            want = mk.mlp_block_reference(x, ln_w, wg, wu, wd, residual=residual)
+            _assert_close(got, want, dtype, f"b={b} residual={residual}")
 
 
-@pytest.mark.parametrize("b", MEGA_ROWS)
 @pytest.mark.parametrize("size", list(MEGA_SIZES))
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
-def test_fused_norm_head_kernel_vs_plain(cuda, dtype, size, b):
+def test_fused_norm_head_kernel_vs_plain(cuda, dtype, size):
     d, *_, vocab = MEGA_SIZES[size]
-    gen = torch.Generator(device=cuda).manual_seed(b + d + 3)
-    x = _randn(gen, (b, d), dtype, cuda)
-    nw = _norm_weight(gen, d, dtype, cuda)
-    head = _weight(gen, (d, vocab), dtype, cuda)
-    got = _counted(mk.fused_norm_head, x, nw, head)
-    assert got.dtype == torch.float32 and got.shape == (b, vocab)
-    _assert_close(got, mk.norm_head_reference(x, nw, head), dtype)
+    for b in MEGA_ROWS:
+        gen = torch.Generator(device=cuda).manual_seed(b + d + 3)
+        x = _randn(gen, (b, d), dtype, cuda)
+        nw = _norm_weight(gen, d, dtype, cuda)
+        head = _weight(gen, (d, vocab), dtype, cuda)
+        got = _counted(mk.fused_norm_head, x, nw, head)
+        assert got.dtype == torch.float32 and got.shape == (b, vocab)
+        _assert_close(got, mk.norm_head_reference(x, nw, head), dtype, f"b={b}")
 
 
 def test_mega_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -565,6 +577,49 @@ def test_paged_flash_decode_kernel_vs_plain(cuda, dtype, hkv):
     assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+def test_paged_flash_decode_quant_kernel_vs_plain(cuda, wire, dtype):
+    """Row 3b on a quantized pool (lengths 0, 1, bs - 1, bs, S and two
+    ragged ones, NULL tails) against its plain version, and bitwise against
+    row 3 on the pool dequantized to q's dtype, at GQA groups 1, 4 and 8."""
+    for hq, hkv in ((8, 8), (32, 8), (32, 4)):
+        gen = torch.Generator(device=cuda).manual_seed(hq + hkv)
+        q, kp, vp, tables, lengths = _paged_case(gen, dtype, cuda, hkv, hq=hq)
+        (kq, ks), (vq, vs) = quantize_kv_rows(kp, wire), quantize_kv_rows(vp, wire)
+        pk, pv = QuantPool(kq, ks, wire), QuantPool(vq, vs, wire)
+        o, lse = _counted(paged_flash_decode_quant, q, kq, vq, tables, lengths, k_scale=ks, v_scale=vs,
+                          return_lse=True)
+        want_o, want_lse = paged_decode_quant_reference(q, kq, vq, tables, lengths, k_scale=ks, v_scale=vs,
+                                                        return_lse=True)
+        group = f"hq={hq} hkv={hkv}"
+        _assert_close(o, want_o, dtype, group)
+        torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+        assert not o[0].any() and (lse[0] == -1e30).all(), group
+        kd, vd = dequantize_kv(kq, ks, dtype), dequantize_kv(vq, vs, dtype)
+        ref_o, ref_lse = paged_flash_decode(q, kd, vd, tables, lengths, return_lse=True)
+        assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse), group
+        before = paged_flash_decode.launches
+        assert torch.equal(paged_flash_decode(q, pk, pv, tables, lengths), o), group  # QuantPool operands: row 3b
+        assert paged_flash_decode.launches == before
+
+
+def test_paged_flash_decode_quant_raises_on_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(2, 8, 32, device=cuda)
+    pool = torch.zeros(5, 4, 16, 32, device=cuda).to(torch.int8)
+    sc = torch.ones(5, 4, 16, 1, device=cuda)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int8 or float8_e4m3fn"):
+        paged_flash_decode_quant(q, pool.float(), pool.float(), tables, lengths, k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="scale pools"):
+        paged_flash_decode_quant(q, pool, pool, tables, lengths, k_scale=sc[..., 0], v_scale=sc)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        paged_flash_decode_quant(q.half(), pool, pool, tables, lengths, k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        paged_flash_decode(q, pool, pool, tables, lengths, v_scale=sc)
+
+
 @pytest.mark.parametrize("c", [8, 16])
 @pytest.mark.parametrize("size", ["test", "qwen3-moe-30b-a3b"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
@@ -613,14 +668,25 @@ def test_paged_and_moe_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 def test_paged_mega_engine_on_cuda_matches_cpu(cuda, preset):
     """The paged mega step (pool write, table walk, the routed experts for
     test-moe) on the card gives the CPU plain path's tokens, slot 1 free."""
+    _paged_serve_card_vs_cpu(cuda, preset, None, "mega")
+
+
+@pytest.mark.parametrize("quant,backend", [("int8", "mega"), ("fp8", "mega"), ("fp8", "dist")])
+def test_quant_paged_engine_on_cuda_matches_cpu(cuda, quant, backend):
+    """``test-dense`` through a quantized pool (row 3b on mega, the gather
+    bounce on dist) on the card gives the CPU plain path's tokens."""
+    _paged_serve_card_vs_cpu(cuda, "test-dense", quant, backend)
+
+
+def _paged_serve_card_vs_cpu(cuda, preset, quant, backend):
     cfg = PRESETS[preset]
     cls = Qwen3MoE if cfg.is_moe else DenseLLM
     p_cpu = init_params(cfg, torch.Generator().manual_seed(4), "cpu")
     p_gpu = DenseParams(**{k: None if t is None else t.to(cuda) for k, t in vars(p_cpu).items()})
     outs = []
     for model in (cls(cfg, p_cpu, device="cpu"), cls(cfg, p_gpu, device=cuda)):
-        engine = Engine(model, backend="mega", max_len=32)
-        paged = engine.alloc_paged(3, block_size=8, num_blocks=16)
+        engine = Engine(model, backend=backend, max_len=32)
+        paged = engine.alloc_paged(3, block_size=8, num_blocks=16, quant=quant)
         tokens = []
         for slot, (ids, chain) in enumerate((([3, 17, 42, 7, 99, 5, 23, 11, 2], [5, 2]), ([], []),
                                              ([8, 1, 6, 4], [9, 3]))):
@@ -636,9 +702,11 @@ def test_paged_mega_engine_on_cuda_matches_cpu(cuda, preset):
             paged.lengths[slot] = len(ids)
             tokens.append(int(logits.argmax()))
         out, _, paged, _ = engine.decode_steps_paged(paged, torch.tensor(tokens), torch.tensor([6, 0, 4]), 6)
-        outs.append((out.cpu(), paged.lengths.cpu().tolist()))
+        outs.append((out.cpu(), paged.lengths.cpu().tolist(), paged.k.dtype))
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
     assert outs[1][1] == outs[0][1] == [9 + 6, 0, 4 + 4]
+    assert outs[1][2] == outs[0][2] == (torch.float32 if quant is None else torch.int8 if quant == "int8"
+                                        else torch.float8_e4m3fn)
 
 
 # --------------------------------------------- world 4: rows 16-19, aborts
@@ -669,6 +737,25 @@ def test_collective_kernels_world4_vs_plain(cuda_ranks, dtype):
             assert within, f"rank {rank} {case}: max |err| {err}"
             assert same in (None, True), f"rank {rank} {case}: the ranks' outputs differ"
         assert res["launches"] == {"ag_gemm_fused": 4, "gemm_rs_fused": 2, "gemm_ar_fused": 2, "gemm_ar_ll": 4}
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_quant_collective_kernels_world4_vs_plain(cuda_ranks, dtype, wire):
+    """Rows 16q-19q (a quantized A) at the edges against their plain
+    versions, bitwise against the unquantized kernels on the dequantized A;
+    rows 18q and 19q the same bits on every rank; each call counts one
+    launch."""
+    atol, rtol = TOL[dtype]
+    got = cuda_ranks.ok("cuda_quant_kernels", dict(dtype=str(dtype).split(".")[1], wire=wire, seed=7, atol=atol,
+                                                   rtol=rtol))
+    for rank, res in enumerate(got):
+        for case, (err, within, bitwise, same) in res["cases"].items():
+            assert within, f"rank {rank} {case}: max |err| {err}"
+            assert bitwise, f"rank {rank} {case}: not the unquantized kernel's bits on the dequantized A"
+            assert same in (None, True), f"rank {rank} {case}: the ranks' outputs differ"
+        assert res["launches"] == {"ag_gemm_fused_quant": 4, "gemm_rs_fused_quant": 2, "gemm_ar_fused_quant": 2,
+                                   "gemm_ar_ll_quant": 4}
 
 
 def test_stalled_peer_ends_in_a_named_collective_abort(cuda, tmp_path):

@@ -54,6 +54,10 @@ def test_port_imports_without_jax():
     # kernels.flash_attn beside rows 1 and 5's forward)
     for mod in ("function", "function.collectives", "function.ep_moe", "function.training", "kernels.sp"):
         assert f"triton_dist_tpu_torch.{mod}" in names
+    # the int8/fp8 format: quantized paged pools (row 3b lives in
+    # kernels.flash_decode) and the quantized A of rows 16-19
+    for mod in ("models.quant", "models.kv_cache", "kernels.flash_decode"):
+        assert f"triton_dist_tpu_torch.{mod}" in names
 
 
 _JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+(jax\b|triton_dist_tpu(?!_torch)\b)", re.M)

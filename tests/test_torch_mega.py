@@ -344,16 +344,14 @@ def test_mega_slot_decode_equals_jax(models):
 
 def test_unported_mega_paths_raise():
     """What the port still leaves out raises, naming its ROADMAP item,
-    rather than falling back to another path: quantized pools and their
-    walk (item E), prefix seeding (item A), the speculative verify step
-    (item C)."""
+    rather than falling back to another path: prefix seeding (item A), the
+    speculative verify step (item C). A quantized walk given one scale pool
+    and not the other raises ``ValueError``, as JAX's assert does."""
     model = Qwen3MoE(MOE, init_params(MOE, torch.Generator().manual_seed(0), "cpu"), device="cpu")
     engine = Engine(model, backend="mega", max_len=32)
-    with pytest.raises(NotImplementedError, match="item E"):
-        engine.alloc_paged(2, block_size=8, num_blocks=8, quant="int8")
     paged = engine.alloc_paged(2, block_size=8, num_blocks=8)
     q = torch.zeros(2, MOE.num_q_heads, MOE.head_dim)
-    with pytest.raises(NotImplementedError, match="item E"):
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
         paged_flash_decode(q, paged.k[0], paged.v[0], paged.tables, paged.lengths, k_scale=paged.k[0])
     with pytest.raises(NotImplementedError, match="item A"):
         engine.paged_seed_kbuf(paged, paged.tables[0], 8, 12)

@@ -42,6 +42,7 @@ from triton_dist_tpu_torch.megakernel import ModelBuilder
 from triton_dist_tpu_torch.megakernel import kernels as mk
 from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, Qwen3MoE, init_params, params_from_numpy
 from triton_dist_tpu_torch.models.kv_cache import NULL_BLOCK, BlockAllocator
+from triton_dist_tpu_torch.models.quant import QuantPool, dequantize_kv, quantize_kv_rows
 
 torch.set_num_threads(2)  # six test workers share the host
 
@@ -133,8 +134,15 @@ def test_paged_decode_vs_jax(dt, hkv):
     assert torch.equal(got_o, ref_o) and torch.equal(got_lse, ref_lse)
     np.testing.assert_array_equal(kc.float().numpy(), np.asarray(jgather_paged_kv(jk, jnp.asarray(tables)),
                                                                    np.float32))
-    with pytest.raises(NotImplementedError, match="item E"):
-        paged_flash_decode(tq, tk, tv, ttab, tlen, k_scale=tk, v_scale=tv)
+    # A quantized walk of the same pool equals the plain walk on the pool
+    # dequantized to q's dtype, bitwise.
+    for wire in ("int8", "fp8"):
+        (kq, ks), (vq, vs) = quantize_kv_rows(tk, wire), quantize_kv_rows(tv, wire)
+        qo, qlse = paged_flash_decode(tq, QuantPool(kq, ks, wire), QuantPool(vq, vs, wire), ttab, tlen,
+                                      return_lse=True)
+        po, plse = paged_flash_decode(tq, dequantize_kv(kq, ks, tq.dtype), dequantize_kv(vq, vs, tq.dtype), ttab,
+                                      tlen, return_lse=True)
+        assert torch.equal(qo, po) and torch.equal(qlse, plse)
 
 
 def test_fused_paged_attn_back_vs_jax():

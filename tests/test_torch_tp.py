@@ -168,6 +168,79 @@ def test_gemm_ar_routes_vs_jax_and_equal_on_every_rank(ranks, mesh4, m):
             np.testing.assert_array_equal(g, got[0])  # replicated: the same bits on every rank
 
 
+# The quantized A operand (rows 16q-19q): every route the port runs, at the
+# shapes above (AUTO takes the fused kernels at m_shard 40, m 264 and 68,
+# the low-latency one at the ragged m 3).
+QUANT_ROUTES = {
+    "ag": ((40,), ("auto", "xla_ring", "xla_ag_then_gemm", "pallas_fused")),
+    "ag_swiglu": ((40,), ("auto", "xla_ring", "xla_ag_then_gemm", "pallas_fused")),
+    "rs": ((264,), ("auto", "xla", "xla_ring", "pallas_fused")),
+    "ar": ((68, 3), ("auto", "xla", "ll_one_shot", "one_shot", "pallas_fused", "rs_ag")),
+}
+#: Bands of the quantized ops against the fp32 product on the dequantized
+#: operand (``docs/quantization.md``).
+QUANT_BAND = {"ag": 1e-3, "ag_swiglu": 1e-2, "rs": 1e-3, "ar": 1e-3}
+
+
+@pytest.mark.parametrize("wire", ("int8", "fp8"))
+@pytest.mark.parametrize("op", tuple(QUANT_ROUTES))
+def test_quant_matmul_routes_vs_jax(ranks, mesh4, op, wire):
+    """A ``QuantTensor`` A (JAX's payload and scales, carried by the
+    bridge): every route within ``1e-5`` of JAX's XLA route on the same
+    quantized operand and inside the band of the fp32 product on the
+    dequantized operand; the all-reduces' output the same bits on every
+    rank."""
+    from triton_dist_tpu.models import quant as jq
+
+    sizes, methods = QUANT_ROUTES[op]
+    for m in sizes:
+        rng = _rng(400 + m)
+        if op.startswith("ag"):
+            a = _f32(rng, WORLD * m, 64)
+            bs = [_weight(rng, 64, WORLD * 32) for _ in range(2 if op == "ag_swiglu" else 1)]
+            aq = jq.quantize_tensor(jnp.asarray(a), wire)
+            if op == "ag":
+                fn = lambda x, b: jag.ag_gemm_shard(x, b, axis="tp",  # noqa: E731
+                                                    method=jag.AGGemmMethod.XLA_AG_THEN_GEMM)
+            else:
+                fn = lambda x, g, u: jag.ag_gemm_swiglu_shard(x, g, u, axis="tp",  # noqa: E731
+                                                              method=jag.AGGemmMethod.XLA_AG_THEN_GEMM)
+            want = np.asarray(_shard_map(mesh4, fn, (P("tp"),) + (P(None, "tp"),) * len(bs), P(None, "tp"))(aq, *bs))
+            deq = np.asarray(jq.dequantize_tensor(aq))
+            g = deq @ bs[0]
+            band_ref = g if op == "ag" else np.asarray(jax.nn.silu(g)) * (deq @ bs[1])
+            shards = [(np.asarray(aq.q)[r * m:(r + 1) * m], np.asarray(aq.scale)[r * m:(r + 1) * m],
+                       [b[:, r * 32:(r + 1) * 32] for b in bs]) for r in range(WORLD)]
+        else:
+            a, b = _f32(rng, m, WORLD * K_LOCAL), _weight(rng, WORLD * K_LOCAL, N)
+            if op == "rs":
+                fn = lambda x, w: jrs.gemm_rs_shard(jq.quantize_tensor(x, wire), w, axis="tp",  # noqa: E731
+                                                    method=jrs.GemmRSMethod.XLA)
+            else:
+                fn = lambda x, w: jar.gemm_ar_shard(jq.quantize_tensor(x, wire), w, axis="tp",  # noqa: E731
+                                                    method=jar.GemmARMethod.XLA)
+            want = np.asarray(_shard_map(mesh4, fn, (P(None, "tp"), P("tp")), P("tp") if op == "rs" else P())(a, b))
+            qs = [jq.quantize_tensor(jnp.asarray(a[:, r * K_LOCAL:(r + 1) * K_LOCAL]), wire) for r in range(WORLD)]
+            band_ref = sum(np.asarray(jq.dequantize_tensor(t)) @ b[r * K_LOCAL:(r + 1) * K_LOCAL]
+                           for r, t in enumerate(qs))
+            shards = [(np.asarray(t.q), np.asarray(t.scale), [b[r * K_LOCAL:(r + 1) * K_LOCAL]])
+                      for r, t in enumerate(qs)]
+        got = ranks.ok("quant_matmuls", [
+            {"op": op, "methods": methods if m % WORLD == 0 else methods[:4], "q": q.view(np.uint8), "scale": sc,
+             "wire": wire, "bs": ws} for q, sc, ws in shards])
+        for method in got[0]:
+            if op.startswith("ag"):
+                out = np.concatenate([g[method] for g in got], 1)
+            elif op == "rs":
+                out = np.concatenate([g[method] for g in got], 0)
+            else:
+                out = got[0][method]
+                for g in got[1:]:
+                    np.testing.assert_array_equal(g[method], out, err_msg=method)  # the same bits on every rank
+            np.testing.assert_allclose(out, want, **OP_TOL, err_msg=f"{method} m={m}")
+            np.testing.assert_allclose(out, band_ref, rtol=0, atol=QUANT_BAND[op], err_msg=f"{method} m={m}")
+
+
 def test_unported_routes_raise(ranks):
     """``GemmARMethod.ONE_SHOT`` and ``RS_AG`` run now (rows 22 and 20; their
     values are held against JAX above); ``GemmRSMethod.PALLAS`` still

@@ -32,7 +32,16 @@ from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
 from triton_dist_tpu_torch.kernels import low_latency_a2a as ll
 from triton_dist_tpu_torch.kernels import reduce_scatter as crs
 from triton_dist_tpu_torch.layers.tp import TP_MoE
-from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, EPMoELLM, Qwen3MoE, params_from_numpy
+from triton_dist_tpu_torch.models import (
+    PRESETS,
+    DenseLLM,
+    Engine,
+    EPMoELLM,
+    Qwen3MoE,
+    params_from_numpy,
+    quant_tensor_from_numpy,
+    quantize_tensor,
+)
 from triton_dist_tpu_torch.runtime import mesh
 
 
@@ -61,6 +70,25 @@ def matmuls(ctx, op, method, a, bs):
     if op == "rs":
         return _np(rs.gemm_rs_shard(ctx, a, bs[0], method=rs.GemmRSMethod(method)))
     return _np(ar.gemm_ar_shard(ctx, a, bs[0], method=ar.GemmARMethod(method)))
+
+
+def quant_matmuls(ctx, op, methods, q, scale, wire, bs):
+    """The collective matmul ``op`` with a quantized A (payload ``q`` as
+    bytes, ``scale`` (rows, 1) or lane-replicated, from JAX through the
+    bridge) on every route in ``methods``; returns each route's output."""
+    a = quant_tensor_from_numpy(q, scale, wire, "cpu")
+    bs = [torch.from_numpy(b) for b in bs]
+    out = {}
+    for method in methods:
+        if op == "ag":
+            out[method] = ag.ag_gemm_shard(ctx, a, bs[0], method=ag.AGGemmMethod(method))
+        elif op == "ag_swiglu":
+            out[method] = ag.ag_gemm_swiglu_shard(ctx, a, bs[0], bs[1], method=ag.AGGemmMethod(method))
+        elif op == "rs":
+            out[method] = rs.gemm_rs_shard(ctx, a, bs[0], method=rs.GemmRSMethod(method))
+        else:
+            out[method] = ar.gemm_ar_shard(ctx, a, bs[0], method=ar.GemmARMethod(method))
+    return {k: _np(v) for k, v in out.items()}
 
 
 def _bits_in(a: np.ndarray) -> torch.Tensor:
@@ -202,6 +230,54 @@ def cuda_kernels(ctx, dtype, seed, atol, rtol):
     launches = {f.__name__: f.launches - before[f.__name__]
                 for f in (ag.ag_gemm_fused, rs.gemm_rs_fused, ar.gemm_ar_fused, ar.gemm_ar_ll)}
     return {"cases": out, "launches": launches}
+
+
+def cuda_quant_kernels(ctx, dtype, wire, seed, atol, rtol):
+    """Rows 16q-19q (a quantized A) at edge shapes on the card against
+    their plain versions on the same inputs, and bitwise against the
+    unquantized kernels on the A dequantized into the weights' dtype (the
+    tiles dequantize exactly); every rank draws every rank's inputs from
+    ``seed``. Returns, per case, the max |error|, whether every element is
+    within ``atol + rtol·|plain|``, whether the bits equal the unquantized
+    kernel's and, for rows 18 and 19, whether every rank got the same bits;
+    and the launches each quant wrapper counted."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=ctx.device).manual_seed(seed)
+    w, me = ctx.world, ctx.rank
+    k, n = 96, 128
+    fns = (ag.ag_gemm_fused_quant, rs.gemm_rs_fused_quant, ar.gemm_ar_fused_quant, ar.gemm_ar_ll_quant)
+    before = {f.__name__: f.launches for f in fns}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=ctx.device) * scale).to(dt)
+
+    def quant(m):
+        return quantize_tensor(torch.randn((w, m, k), generator=gen, device=ctx.device)[me], wire)
+
+    def check(got, want, same_as):
+        err = (got.float() - want.float()).abs()
+        return (err.max().item(), bool((err <= atol + rtol * want.float().abs()).all()),
+                torch.equal(got.view(torch.uint8), same_as.view(torch.uint8)))
+
+    out = {}
+    for m, swiglu in ((1, False), (33, True), (64, False), (65, True)):
+        a = quant(m)
+        bs = tuple(randn(k, n, scale=k ** -0.5) for _ in range(2 if swiglu else 1))
+        got = ag.ag_gemm_fused_quant(ctx, a, bs)
+        same_as = ag.ag_gemm_fused(ctx, a.q.float().mul(a.scale).to(dt).contiguous(), bs)
+        out[f"ag m_shard={m} swiglu={swiglu}"] = (*check(got, ag.ag_gemm_quant_reference(ctx, a, bs), same_as), None)
+    cases = [("rs", rs.gemm_rs_fused_quant, rs.gemm_rs_fused, rs.gemm_rs_quant_reference, (4, 260))]
+    cases += [("ar", ar.gemm_ar_fused_quant, ar.gemm_ar_fused, ar.gemm_ar_quant_reference, (4, 68)),
+              ("ll", ar.gemm_ar_ll_quant, ar.gemm_ar_ll, ar.gemm_ar_quant_reference, (1, 3, 4, 68))]
+    for name, fn, plain_fn, ref, ms in cases:
+        for m in ms:
+            a, b = quant(m), randn(w, k, n, scale=(w * k) ** -0.5)[me].contiguous()
+            got = fn(ctx, a, b)
+            same_as = plain_fn(ctx, a.q.float().mul(a.scale).to(dt).contiguous(), b)
+            same = _same_on_every_rank(ctx, got) if name != "rs" else None
+            out[f"{name} m={m}"] = (*check(got, ref(ctx, a, b), same_as), same)
+    ctx.check_status()
+    return {"cases": out, "launches": {f.__name__: f.launches - before[f.__name__] for f in fns}}
 
 
 def cuda_collectives(ctx, seed):
@@ -429,7 +505,8 @@ def function_grads(ctx, op, args, c, **kw):
 TASKS = {"collectives": collectives, "collective_ops": collective_ops, "tp_moe": tp_moe,
          "matmuls": matmuls, "serve": serve, "dist_prefill": dist_prefill, "cuda_collectives": cuda_collectives,
          "cuda_kernels": cuda_kernels, "stall": stall, "ep_op": ep_op, "ep_mlp": ep_mlp,
-         "cuda_ep_kernels": cuda_ep_kernels, "function_grads": function_grads}
+         "cuda_ep_kernels": cuda_ep_kernels, "function_grads": function_grads, "quant_matmuls": quant_matmuls,
+         "cuda_quant_kernels": cuda_quant_kernels}
 
 
 def _read(stream):

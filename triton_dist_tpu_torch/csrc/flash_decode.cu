@@ -39,8 +39,25 @@
 // with Qwen3-30B-A3B's 4), so it sits well under the bandwidth bound:
 // splitting the KV sweep across blocks (split-KV with a combine pass) is
 // the fix, left for a later change.
+//
+// Row 3b: `_paged_decode_quant_kernel` (flash_decode.py:275, the same
+// launcher) walks a quantized pool: int8 or fp8 e4m3 payload blocks beside
+// a parallel pool of f32 row scales (models/quant.py), both found through
+// the same table entry. `paged_decode_quant_kernel` is the third row
+// policy of the one sweep: it looks the block up as the paged kernel does,
+// loads the 1-byte row and that row's scale, and dequantizes q * scale
+// into fp32 registers before QK^T and before PV. The scales are powers of
+// two, so the dequantized value is exact in fp32 and in bf16: the walk
+// equals row 3 on the pool dequantized to q's dtype, bit for bit, since it
+// visits the keys in the same partition and order and rounds P to q's
+// dtype as row 3 rounds it to V's. (The TPU kernel keeps P in f32 against
+// f32 V; for an fp32 model the two are the same function.) Bound: the
+// bytes, now sum(lengths) * Hkv * (D + 4) * 2 (1-byte payload and a 4-byte
+// scale a row, K and V): 132 bytes a row a head at D = 128 against row 3's
+// 256, so its bound is about 0.516 of row 3's.
 
 #include "common.cuh"
+#include "quant.cuh"
 
 using namespace tdt;
 
@@ -50,11 +67,39 @@ constexpr int DEC_WARPS = 8;
 constexpr int DEC_THREADS = DEC_WARPS * 32;
 constexpr int DEC_TILE = 32;  // keys per warp step, one per lane
 
+// A K or V row as the sweep reads it: its address and, in a quantized
+// pool, its scale (unused otherwise).
+template <typename P>
+struct RowRef {
+  const P* p;
+  float s;
+};
+
+// N values of row r from column c, widened (and dequantized) to fp32.
+template <int N, typename P>
+__device__ __forceinline__ void load_row(const RowRef<P>& r, int c, float (&out)[N]) {
+  if constexpr (is_wire<P>::value)
+    load_dequant<N>(r.p + c, r.s, out);
+  else
+    load_vec<N>(r.p + c, out);
+}
+
+// Lane src's row.
+template <typename P>
+__device__ __forceinline__ RowRef<P> shfl_row(const RowRef<P>& r, int src) {
+  RowRef<P> out;
+  out.p = reinterpret_cast<const P*>(
+      __shfl_sync(0xffffffffu, reinterpret_cast<unsigned long long>(r.p), src));
+  out.s = 1.f;
+  if constexpr (is_wire<P>::value) out.s = __shfl_sync(0xffffffffu, r.s, src);
+  return out;
+}
+
 // Key t of a padded cache: base points at row 0 of this (b, kv head).
 template <typename T, int D>
 struct PaddedRows {
   const T* base;
-  __device__ __forceinline__ const T* operator()(int t) const { return base + (size_t)t * D; }
+  __device__ __forceinline__ RowRef<T> operator()(int t) const { return {base + (size_t)t * D, 1.f}; }
 };
 
 // Key t of a block pool: the table row of this sequence (in shared memory)
@@ -66,13 +111,31 @@ struct PoolRows {
   int bs;
   size_t block_stride;  // Hkv * bs * D
   size_t head_off;      // h * bs * D
-  __device__ __forceinline__ const T* operator()(int t) const {
-    return pool + (size_t)table[t / bs] * block_stride + head_off + (size_t)(t % bs) * D;
+  __device__ __forceinline__ RowRef<T> operator()(int t) const {
+    return {pool + (size_t)table[t / bs] * block_stride + head_off + (size_t)(t % bs) * D, 1.f};
+  }
+};
+
+// Key t of a quantized block pool: the payload row as in PoolRows, and its
+// scale from the scale pool (num_blocks, Hkv, bs, 1) through the same table
+// entry.
+template <typename P, int D>
+struct QuantPoolRows {
+  const P* pool;
+  const float* scales;
+  const int* table;
+  int bs;
+  int Hkv;
+  int h;
+  __device__ __forceinline__ RowRef<P> operator()(int t) const {
+    const size_t row = ((size_t)table[t / bs] * Hkv + h) * bs + t % bs;  // the row's index in the scale pool
+    return {pool + row * D, scales[row]};
   }
 };
 
 // The decode of one (b, kv head): the G query heads at Qp over keys
-// [0, len), writing their G rows of o (and lse) at row index row0.
+// [0, len), writing their G rows of o (and lse) at row index row0. T is
+// q's and o's dtype; P rounds to it before PV.
 template <typename T, int D, int G, typename Rows>
 __device__ __forceinline__ void decode_sweep(const T* __restrict__ Qp, Rows krow, Rows vrow,
                                              int len, T* __restrict__ O, float* __restrict__ LSE,
@@ -101,16 +164,16 @@ __device__ __forceinline__ void decode_sweep(const T* __restrict__ Qp, Rows krow
     const bool valid = key < len;
     // Each lane finds its key's V row once; the PV loop takes row kk from
     // lane kk, so no table lookup sits in front of its loads.
-    const T* vr_lane = valid ? vrow(key) : nullptr;
+    const auto vr_lane = valid ? vrow(key) : decltype(vrow(0)){nullptr, 1.f};
     float s[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = 0.f;
     if (valid) {
-      const T* kr = krow(key);
+      const auto kr = krow(key);
 #pragma unroll
       for (int c = 0; c < D; c += 8) {
         float kv[8];
-        load_vec<8>(kr + c, kv);
+        load_row<8>(kr, c, kv);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float4 qa = *reinterpret_cast<const float4*>(&sQ[g][c]);
@@ -142,9 +205,7 @@ __device__ __forceinline__ void decode_sweep(const T* __restrict__ Qp, Rows krow
     const int nv = min(DEC_TILE, len - t0);
     for (int kk = 0; kk < nv; ++kk) {
       float vv[DPL];
-      const T* vr = reinterpret_cast<const T*>(
-          __shfl_sync(0xffffffffu, reinterpret_cast<unsigned long long>(vr_lane), kk));
-      load_vec<DPL>(vr + lane * DPL, vv);
+      load_row<DPL>(shfl_row(vr_lane, kk), lane * DPL, vv);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pk = __shfl_sync(0xffffffffu, p[g], kk);
@@ -222,15 +283,53 @@ __global__ void __launch_bounds__(DEC_THREADS)
                         row0, scale);
 }
 
-// Everything a launch needs; `tables` is null for the padded cache.
+template <typename T, typename P, int D, int G>
+__global__ void __launch_bounds__(DEC_THREADS)
+    paged_decode_quant_kernel(const T* __restrict__ Q, const P* __restrict__ KP,
+                              const P* __restrict__ VP, const float* __restrict__ KS,
+                              const float* __restrict__ VS, const int* __restrict__ tables,
+                              const int* __restrict__ lengths, T* __restrict__ O,
+                              float* __restrict__ LSE, int Hkv, int bs, int max_blocks,
+                              float scale) {
+  extern __shared__ int s_table[];  // this sequence's row of the block table
+  const int bh = blockIdx.x;
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int row0 = b * Hkv * G + hk * G;
+  for (int i = threadIdx.x; i < max_blocks; i += DEC_THREADS)
+    s_table[i] = tables[(size_t)b * max_blocks + i];
+  const int len = max(0, min(lengths[b], max_blocks * bs));
+  decode_sweep<T, D, G>(Q + (size_t)row0 * D, QuantPoolRows<P, D>{KP, KS, s_table, bs, Hkv, hk},
+                        QuantPoolRows<P, D>{VP, VS, s_table, bs, Hkv, hk}, len, O, LSE, row0,
+                        scale);
+}
+
+// Everything a launch needs; `tables` is null for the padded cache, `ks`
+// and `vs` (the scale pools) are null but for a quantized pool.
 struct Args {
   const void *q, *k, *v;
+  const float *ks, *vs;
   const int *tables, *lengths;
   void* o;
   float* lse;
   int B, Hkv, S, bs, max_blocks;
   float scale;
+  int wire;
 };
+
+template <typename T, typename P, int D, int G>
+cudaError_t launch_quant(const Args& a, cudaStream_t s) {
+  const int smem = a.max_blocks * (int)sizeof(int);
+  if (smem > 8 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(paged_decode_quant_kernel<T, P, D, G>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  paged_decode_quant_kernel<T, P, D, G><<<a.B * a.Hkv, DEC_THREADS, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.k), static_cast<const P*>(a.v), a.ks,
+      a.vs, a.tables, a.lengths, static_cast<T*>(a.o), a.lse, a.Hkv, a.bs, a.max_blocks,
+      a.scale);
+  return cudaGetLastError();
+}
 
 template <typename T, int D, int G>
 cudaError_t launch_one(const Args& a, cudaStream_t s) {
@@ -239,6 +338,11 @@ cudaError_t launch_one(const Args& a, cudaStream_t s) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   T* o = static_cast<T*>(a.o);
+  if (a.ks != nullptr) {
+    if (a.wire == WIRE_INT8) return launch_quant<T, int8_t, D, G>(a, s);
+    if (a.wire == WIRE_FP8) return launch_quant<T, fp8e4m3, D, G>(a, s);
+    return cudaErrorInvalidValue;
+  }
   if (a.tables == nullptr) {
     flash_decode_kernel<T, D, G><<<grid, DEC_THREADS, 0, s>>>(q, k, v, a.lengths, o, a.lse, a.Hkv,
                                                                a.S, a.scale);
@@ -295,8 +399,8 @@ int dispatch(const Args& a, int Hq, int D, int dtype, void* stream) {
 extern "C" int tdt_flash_decode(const void* q, const void* k, const void* v, const void* lengths,
                                 void* o, void* lse, int B, int Hq, int Hkv, int S, int D,
                                 float scale, int dtype, void* stream) {
-  const Args a{q, k, v, nullptr, static_cast<const int*>(lengths), o, static_cast<float*>(lse),
-               B, Hkv, S, 0, 0, scale};
+  const Args a{q, k, v, nullptr, nullptr, nullptr, static_cast<const int*>(lengths), o,
+               static_cast<float*>(lse), B, Hkv, S, 0, 0, scale, 0};
   return dispatch(a, Hq, D, dtype, stream);
 }
 
@@ -312,8 +416,28 @@ extern "C" int tdt_paged_flash_decode(const void* q, const void* k_pool, const v
                                       float scale, int dtype, void* stream) {
   if (tables == nullptr || bs <= 0 || max_blocks <= 0 || max_blocks > 16384)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k_pool, v_pool, static_cast<const int*>(tables),
+  const Args a{q, k_pool, v_pool, nullptr, nullptr, static_cast<const int*>(tables),
                static_cast<const int*>(lengths), o, static_cast<float*>(lse), B, Hkv, 0, bs,
-               max_blocks, scale};
+               max_blocks, scale, 0};
+  return dispatch(a, Hq, D, dtype, stream);
+}
+
+// Row 3b: as tdt_paged_flash_decode over a quantized pool. k_pool, v_pool:
+// (num_blocks, Hkv, bs, D) int8 (wire 0) or fp8 e4m3 (wire 1); k_scale,
+// v_scale: (num_blocks, Hkv, bs, 1) f32. q, o in fp32 (dtype 0) or bf16
+// (dtype 1). Returns cudaGetLastError().
+extern "C" int tdt_paged_flash_decode_quant(const void* q, const void* k_pool, const void* v_pool,
+                                            const void* k_scale, const void* v_scale,
+                                            const void* tables, const void* lengths, void* o,
+                                            void* lse, int B, int Hq, int Hkv, int bs,
+                                            int max_blocks, int D, float scale, int dtype, int wire,
+                                            void* stream) {
+  if (tables == nullptr || k_scale == nullptr || v_scale == nullptr || bs <= 0 ||
+      max_blocks <= 0 || max_blocks > 16384)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), static_cast<const int*>(tables),
+               static_cast<const int*>(lengths), o, static_cast<float*>(lse), B, Hkv, 0, bs,
+               max_blocks, scale, wire};
   return dispatch(a, Hq, D, dtype, stream);
 }

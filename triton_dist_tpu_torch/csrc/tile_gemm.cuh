@@ -7,6 +7,13 @@
 // adjacent columns: f(r, c, v) with r, c relative to the tile and v[b][0..1]
 // the fp32 sums of operand b at columns c and c + 1.
 //
+// A may also be quantized (QuantA: int8 or fp8 e4m3 rows with one f32
+// scale a row, models/quant.py): each A value is dequantized exactly,
+// q * scale in fp32, as it is staged into shared memory, and then rounded to
+// T (exact too: at most 8 significant bits times a power of two), so the
+// tile computes the same bits as on the dequantized A in T. The quantized
+// stage is a plain 8-byte load and a 16-byte shared store (no cp.async).
+//
 // bf16: 4 warps in a 2 x 2 arrangement of 32 x 32 warp tiles, warp-level
 // mma.sync m16n8k16 with fp32 accumulators, the K sweep staged through a
 // 3-stage cp.async ring of 64-deep steps (csrc/group_gemm.cu's tile; needs
@@ -17,11 +24,36 @@
 #pragma once
 
 #include "common.cuh"
+#include "quant.cuh"
 
 namespace tdt {
 
 constexpr int TILE_M = 64;
 constexpr int TILE_N = 64;
+
+// Where a tile's A rows come from: `rows` rows of K values at p (row stride
+// K), or quantized rows q (row stride K) with their scales (one a row).
+// Both may lie in another rank's heap: they are read through L2.
+template <typename T>
+struct PlainA {
+  const T* p;
+};
+template <typename P>
+struct QuantA {
+  const P* q;
+  const float* scale;
+};
+
+// Element (r, k) of A as fp32.
+template <typename T>
+__device__ __forceinline__ float a_value(const PlainA<T>& a, int r, int K, int k) {
+  return __ldcg(a.p + (size_t)r * K + k);
+}
+template <typename P>
+__device__ __forceinline__ float a_value(const QuantA<P>& a, int r, int K, int k) {
+  const unsigned char b = __ldcg(reinterpret_cast<const unsigned char*>(a.q) + (size_t)r * K + k);
+  return wire_byte_to_float<P>(b) * __ldcg(a.scale + r);
+}
 
 template <typename T, int NB>
 struct TileGemm;
@@ -79,14 +111,37 @@ struct TileGemm<bf16, NB> {
 
   float acc[NB][2][4][4];
 
-  __device__ __forceinline__ void load_stage(bf16* s, const bf16* A, int rows, int K, const bf16* const (&B)[NB],
+  // Eight A values (row r, columns k..k+7) into shared memory at dst;
+  // zeros where !ok.
+  __device__ __forceinline__ static void stage_a(bf16* dst, const PlainA<bf16>& a, int r, int K, int k, bool ok) {
+    tile_detail::cp_async16(dst, ok ? a.p + (size_t)r * K + k : a.p, ok ? 16 : 0);
+  }
+  template <typename P>
+  __device__ __forceinline__ static void stage_a(bf16* dst, const QuantA<P>& a, int r, int K, int k, bool ok) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (ok) {
+      const uint2 u = __ldcg(reinterpret_cast<const uint2*>(a.q + (size_t)r * K + k));
+      float f[8];
+      const float sc = __ldcg(a.scale + r);
+      dequant4<P>(u.x, sc, f);
+      dequant4<P>(u.y, sc, f + 4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+        w[j] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+
+  template <typename A>
+  __device__ __forceinline__ void load_stage(bf16* s, const A& a, int rows, int K, const bf16* const (&B)[NB],
                                              int N, int n0, int k0) {
     using namespace tile_detail;
     constexpr int CPR = BK / 8;  // 16-byte chunks per row (BK == TILE_N)
     for (int c = threadIdx.x; c < TILE_M * CPR; c += THREADS) {
       const int r = c / CPR, cc = (c % CPR) * 8;
-      const bool ok = r < rows && k0 + cc < K;
-      cp_async16(s + r * LDS + cc, ok ? A + (size_t)r * K + k0 + cc : A, ok ? 16 : 0);
+      stage_a(s + r * LDS + cc, a, r, K, k0 + cc, r < rows && k0 + cc < K);
     }
     for (int c = threadIdx.x; c < BK * CPR; c += THREADS) {
       const int r = c / CPR, cc = (c % CPR) * 8;
@@ -99,6 +154,11 @@ struct TileGemm<bf16, NB> {
 
   // smem: SMEM_BYTES of dynamic shared memory, 16-byte aligned.
   __device__ void run(const bf16* A, int rows, int K, const bf16* const (&B)[NB], int N, int n0, bf16* smem) {
+    run_a(PlainA<bf16>{A}, rows, K, B, N, n0, smem);
+  }
+
+  template <typename AS>
+  __device__ void run_a(const AS& A, int rows, int K, const bf16* const (&B)[NB], int N, int n0, bf16* smem) {
     using namespace tile_detail;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
@@ -199,6 +259,11 @@ struct TileGemm<float, NB> {
   float acc[NB][4][4];  // rows 4ty + i; columns 2tx, 2tx + 1, 32 + 2tx, 33 + 2tx
 
   __device__ void run(const float* A, int rows, int K, const float* const (&B)[NB], int N, int n0, float* smem) {
+    run_a(PlainA<float>{A}, rows, K, B, N, n0, smem);
+  }
+
+  template <typename AS>
+  __device__ void run_a(const AS& A, int rows, int K, const float* const (&B)[NB], int N, int n0, float* smem) {
     float* sa = smem;                      // [BK][TILE_M + 4], A transposed
     float* sb = smem + BK * (TILE_M + 4);  // [NB][BK][TILE_N]
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -212,7 +277,7 @@ struct TileGemm<float, NB> {
       __syncthreads();  // every thread is done with the previous step
       for (int i = threadIdx.x; i < TILE_M * BK; i += THREADS) {
         const int r = i / BK, k = i % BK;
-        sa[k * (TILE_M + 4) + r] = (r < rows && k0 + k < K) ? __ldcg(A + (size_t)r * K + k0 + k) : 0.f;
+        sa[k * (TILE_M + 4) + r] = (r < rows && k0 + k < K) ? a_value(A, r, K, k0 + k) : 0.f;
       }
       for (int i = threadIdx.x; i < BK * TILE_N; i += THREADS) {
         const int k = i / TILE_N, c = i % TILE_N;

@@ -3,7 +3,12 @@ version. Every wrapper counts its launches in ``<wrapper>.launches`` (a
 backward wrapper one per kernel it starts: two a call)."""
 
 from triton_dist_tpu_torch.kernels.allgather import all_gather_reference, full_mesh_ag_call, ring_ag_call
-from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_fused, ag_gemm_reference
+from triton_dist_tpu_torch.kernels.allgather_gemm import (
+    ag_gemm_fused,
+    ag_gemm_fused_quant,
+    ag_gemm_quant_reference,
+    ag_gemm_reference,
+)
 from triton_dist_tpu_torch.kernels.allreduce import one_shot_ar_call, one_shot_ar_reference
 from triton_dist_tpu_torch.kernels.common_ops import barrier_all_on_device
 from triton_dist_tpu_torch.kernels.ep_a2a import all_to_all_kernel
@@ -21,11 +26,25 @@ from triton_dist_tpu_torch.kernels.flash_attn import (
 from triton_dist_tpu_torch.kernels.flash_decode import (
     decode_reference,
     flash_decode,
+    paged_decode_quant_reference,
     paged_decode_reference,
     paged_flash_decode,
+    paged_flash_decode_quant,
 )
-from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_fused, gemm_ar_ll, gemm_ar_reference
-from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs_fused, gemm_rs_reference
+from triton_dist_tpu_torch.kernels.gemm_allreduce import (
+    gemm_ar_fused,
+    gemm_ar_fused_quant,
+    gemm_ar_ll,
+    gemm_ar_ll_quant,
+    gemm_ar_quant_reference,
+    gemm_ar_reference,
+)
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
+    gemm_rs_fused,
+    gemm_rs_fused_quant,
+    gemm_rs_quant_reference,
+    gemm_rs_reference,
+)
 from triton_dist_tpu_torch.kernels.group_gemm import group_gemm_swiglu, group_swiglu_reference
 from triton_dist_tpu_torch.kernels.mega_decode import (
     attn_back_reference,
@@ -48,6 +67,7 @@ KERNELS = {
     "flash_attention_varlen_bwd": flash_attention_varlen_bwd,
     "flash_decode": flash_decode,
     "paged_flash_decode": paged_flash_decode,
+    "paged_flash_decode_quant": paged_flash_decode_quant,
     "group_gemm_swiglu": group_gemm_swiglu,
     "fused_ln_qkv_rope": fused_ln_qkv_rope,
     "fused_attn_back": fused_attn_back,
@@ -58,6 +78,10 @@ KERNELS = {
     "gemm_rs_fused": gemm_rs_fused,
     "gemm_ar_fused": gemm_ar_fused,
     "gemm_ar_ll": gemm_ar_ll,
+    "ag_gemm_fused_quant": ag_gemm_fused_quant,
+    "gemm_rs_fused_quant": gemm_rs_fused_quant,
+    "gemm_ar_fused_quant": gemm_ar_fused_quant,
+    "gemm_ar_ll_quant": gemm_ar_ll_quant,
     "barrier_all_on_device": barrier_all_on_device,
     "all_to_all_kernel": all_to_all_kernel,
     "fused_ep_kernel": fused_ep_kernel,
@@ -80,6 +104,8 @@ def launch_counts() -> dict[str, int]:
 __all__ = [
     "KERNELS",
     "ag_gemm_fused",
+    "ag_gemm_fused_quant",
+    "ag_gemm_quant_reference",
     "ag_gemm_reference",
     "all_gather_reference",
     "full_mesh_ag_call",
@@ -93,9 +119,14 @@ __all__ = [
     "fused_ep_kernel",
     "fused_ep_reference",
     "gemm_ar_fused",
+    "gemm_ar_fused_quant",
     "gemm_ar_ll",
+    "gemm_ar_ll_quant",
+    "gemm_ar_quant_reference",
     "gemm_ar_reference",
     "gemm_rs_fused",
+    "gemm_rs_fused_quant",
+    "gemm_rs_quant_reference",
     "gemm_rs_reference",
     "attention_bwd_reference",
     "attention_reference",
@@ -117,8 +148,10 @@ __all__ = [
     "mlp_block_reference",
     "moe_block_reference",
     "norm_head_reference",
+    "paged_decode_quant_reference",
     "paged_decode_reference",
     "paged_flash_decode",
+    "paged_flash_decode_quant",
     "varlen_bwd_reference",
     "varlen_reference",
     "launch_counts",

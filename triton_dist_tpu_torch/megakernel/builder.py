@@ -20,6 +20,9 @@ layer's attention front. The caches are the stacked ``(L, B, Hkv, S, D)``
 tensors or, with ``paged=True``, the stacked block pools ``(L,
 num_blocks, Hkv, bs, D)`` with the block tables and the per-slot active
 mask as step inputs; both are updated in place (JAX returns new arrays).
+The block pools may be ``QuantPool`` pairs (``models/quant.py``): the
+plan is the same, the paged ``cache_update`` lowerings quantize the new
+rows once at append and the walk is row 3b (JAX ``builder.py:688-763``).
 
 At tensor-parallel world > 1 (a ``ctx``, JAX's ``world``) every rank
 records the same graph over its shard: its q and kv heads and its ff
@@ -555,8 +558,7 @@ class ModelBuilder:
                 pv, _ = env[t.inputs[3]]
                 li_ = cache_li(env_li)
                 at = _paged_at(env, t.inputs[4], t.inputs[5], t.inputs[6], pk.shape[3])
-                write_pool_rows(pk, li_, k_new, at)
-                write_pool_rows(pv, li_, v_new, at)
+                write_pool_rows(pk, pv, li_, k_new, v_new, at)
                 env[t.outputs[0]] = (pk, li_)
                 env[t.outputs[1]] = (pv, li_)
             return standalone_cache_update_paged

@@ -39,10 +39,27 @@ def paged_write_at(tables: torch.Tensor, lengths: torch.Tensor, active: torch.Te
     return phys, (lengths % bs).long(), keep
 
 
-def write_pool_rows(pool: torch.Tensor, li: int, new: torch.Tensor, at) -> None:
-    """Write ``new`` (B, Hkv, D) into layer ``li`` of the stacked pool
-    (L, num_blocks, Hkv, bs, D) in place, at ``at = paged_write_at(...)``."""
+def write_pool_rows(pk, pv, li: int, k_new: torch.Tensor, v_new: torch.Tensor, at) -> None:
+    """Write ``k_new``/``v_new`` (B, Hkv, D) into layer ``li`` of the
+    stacked pools (L, num_blocks, Hkv, bs, D) in place, at ``at =
+    paged_write_at(...)``. ``QuantPool`` pools take the rows quantized once,
+    here, K and V in one pass (plain tensor ops: JAX's XLA code at this
+    point); payload and scale land together."""
+    from triton_dist_tpu_torch.models.quant import QuantPool, quantize_kv_rows
+
     phys, sub, keep = at
+    if not isinstance(pk, QuantPool):
+        _write_at(pk, li, k_new, phys, sub, keep)
+        _write_at(pv, li, v_new, phys, sub, keep)
+        return
+    q, s = quantize_kv_rows(torch.stack((k_new, v_new)), pk.wire)  # (2, B, Hkv, D), (2, B, Hkv, 1)
+    for i, pool in enumerate((pk, pv)):
+        # The payload moves as bytes: not every op takes an fp8 tensor.
+        _write_at(pool.q.view(torch.uint8), li, q[i].view(torch.uint8), phys, sub, keep)
+        _write_at(pool.scale, li, s[i], phys, sub, keep)
+
+
+def _write_at(pool: torch.Tensor, li: int, new: torch.Tensor, phys, sub, keep) -> None:
     pool[li, phys, :, sub] = torch.where(keep[:, None, None], new, pool[li, phys, :, sub])
 
 
@@ -50,8 +67,8 @@ def fused_paged_attn_back(
     q: torch.Tensor,  # (B, Hq, D) roped decode queries
     k_new: torch.Tensor,  # (B, Hkv, D) this step's K row
     v_new: torch.Tensor,  # (B, Hkv, D)
-    pk: torch.Tensor,  # (L, num_blocks, Hkv, bs, D) stacked block pool
-    pv: torch.Tensor,
+    pk,  # (L, num_blocks, Hkv, bs, D) stacked block pool, or a QuantPool
+    pv,
     li: int,  # layer index into the pool's leading dim
     tables: torch.Tensor,  # (B, max_blocks) int32 physical block ids
     lengths: torch.Tensor,  # (B,) int32 valid length BEFORE this step
@@ -68,11 +85,12 @@ def fused_paged_attn_back(
     active`` keys and the rounded o goes through ``wo`` in fp32 (a plain
     ``matmul``, as JAX's ``jnp.dot``). Returns ``(partial (B, n) fp32, pk,
     pv)``; the pools are written in place. ``at`` passes a precomputed
-    ``paged_write_at`` (the same for every layer of a step)."""
+    ``paged_write_at`` (the same for every layer of a step). ``pk``/``pv``
+    may be ``QuantPool`` pairs: the new rows are quantized once at append
+    and the walk is row 3b (JAX ``megakernel/kernels.py:533-570``)."""
     b, hq, d = q.shape
     if at is None:
         at = paged_write_at(tables, lengths, active, pk.shape[3])
-    write_pool_rows(pk, li, k_new, at)
-    write_pool_rows(pv, li, v_new, at)
+    write_pool_rows(pk, pv, li, k_new, v_new, at)
     o = paged_flash_decode(q, pk[li], pv[li], tables, lengths + active.to(lengths.dtype), scale=scale)
     return matmul_f32(o.reshape(b, hq * d), wo), pk, pv

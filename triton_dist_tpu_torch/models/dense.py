@@ -324,8 +324,10 @@ class DenseLLM:
         Hkv, bs, D) and walks them; ``tables`` (B, max_blocks) int32 and
         ``active`` (B,) bool are data. Inactive slots write to the NULL block
         and attend their frozen ``lengths`` rows; the caller masks their
-        logits. Returns (logits (B, V) fp32, pk, pv), the pools updated in
-        place."""
+        logits. ``pk``/``pv`` may be ``QuantPool`` pairs
+        (``PagedKVCache.pool_pair``, JAX ``Engine._pool_pair``): the same
+        plan quantizes the new rows at append and walks them with row 3b.
+        Returns (logits (B, V) fp32, pk, pv), the pools updated in place."""
         x = self.params.embed[self._tokens(token)]
         x, pk, pv = step_fn(mega_layers, x, pk, pv, lengths, active=active, tables=tables)
         logits = fused_norm_head(x, self.params.final_norm, self.params.lm_head, eps=self.config.rms_eps)

@@ -16,7 +16,12 @@ decode step one recorded task graph lowered to the fused decode kernels
 (``megakernel/``), over the contiguous slot cache or, paged, directly over
 the block pool. The other backends decode a paged pool by gathering it into
 the contiguous layout, running ``decode_steps`` and scattering the chunk's
-rows back. Caches and pools are updated in place.
+rows back. Caches and pools are updated in place. A paged pool may be
+quantized (``alloc_paged(..., quant="int8"|"fp8")``, ``models/quant.py``):
+each row is quantized once, when it is written (``complete_paged_prefill``,
+the mega step's append, the gather bounce's scatter); mega walks it with
+row 3b, the other backends dequantize the gathered rows into the model
+dtype (exact: power-of-two scales).
 
 At tensor-parallel world > 1 (a model built with a ``DistContext``) every
 rank runs this engine on its shard: caches hold its Hkv / world heads, the
@@ -37,6 +42,7 @@ import torch
 from triton_dist_tpu_torch.kernels.flash_decode import gather_paged_kv
 from triton_dist_tpu_torch.models.dense import DenseLLM
 from triton_dist_tpu_torch.models.kv_cache import NULL_BLOCK, KVCache, PagedKVCache
+from triton_dist_tpu_torch.models.quant import dequantize_kv, quantize_kv_rows
 from triton_dist_tpu_torch.runtime.mesh import all_gather
 
 _BACKENDS = ("xla", "dist", "dist_ar", "mega")
@@ -217,7 +223,8 @@ class Engine:
         ``block_size`` rows and all-NULL per-slot block tables sized for
         ``max_len``. Block 0 is the reserved NULL block (``BlockAllocator``
         never hands it out). The caller sets ``tables`` and ``lengths``.
-        ``quant`` pools are not ported (ROADMAP queue 1 item E)."""
+        ``quant`` ("int8"/"fp8") stores the pool in the wire dtype beside
+        per-row f32 scale pools (``models/quant.py``)."""
         self._check_paged_world()
         c = self.model.config
         return PagedKVCache.create(
@@ -261,7 +268,9 @@ class Engine:
         the slot's block chain ``table_row``, block by block; blocks below
         ``start_block`` are prefix-shared and redirect to the NULL block
         instead of being rewritten. The pools are written in place; the
-        tables and lengths are the caller's to update."""
+        tables and lengths are the caller's to update. A quantized pool
+        takes the owned blocks quantized once, here; a shared block's
+        (payload, scale) pair is never written again."""
         self._check_paged_world()
         bs = paged.block_size
         nl, _, hkv, p_len, hd = kbuf.shape
@@ -276,8 +285,8 @@ class Engine:
             x = torch.nn.functional.pad(buf[:, 0], (0, 0, 0, mbf * bs - p_len))
             return x.reshape(nl, hkv, mbf, bs, hd).transpose(1, 2)
 
-        paged.k[:, phys] = blocks_of(kbuf)
-        paged.v[:, phys] = blocks_of(vbuf)
+        for buf, pool, scales in ((kbuf, paged.k, paged.k_scale), (vbuf, paged.v, paged.v_scale)):
+            _put_rows(pool, scales, paged.quant, (slice(None), phys), blocks_of(buf))
         return paged
 
     @torch.no_grad()
@@ -290,13 +299,17 @@ class Engine:
         the contiguous layout, run ``decode_steps`` on it, then scatter each
         slot's rows written in this chunk back along its table, masked rows
         to the NULL block. Returns ``(out, last_tokens, paged, remaining')``;
-        the pools and ``paged.lengths`` are updated in place."""
+        the pools and ``paged.lengths`` are updated in place. A quantized
+        pool: mega runs the quantized step (``QuantPool`` pairs, row 3b);
+        the others gather and dequantize into the model dtype, and the
+        scatter quantizes each new row once."""
         self._check_paged_world()
         if self.decode_mode == "mega":
+            pk, pv = paged.pool_pair()
+
             def step(tok, lens, act):
                 logits, _, _ = self.model.decode_mega_paged(
-                    self._mega_paged_step, self._mega_layers, tok, paged.k, paged.v, paged.tables,
-                    lens, act)
+                    self._mega_paged_step, self._mega_layers, tok, pk, pv, paged.tables, lens, act)
                 return logits
 
             out, token, lengths, rem = self._decode_loop(step, tokens, remaining, paged.lengths, chunk,
@@ -305,12 +318,20 @@ class Engine:
             return out, token, paged, rem
         lengths0 = paged.lengths.clone()
         remaining0 = torch.as_tensor(remaining, device=self.device).to(torch.int32)
-        cache = KVCache(k=gather_paged_kv(paged.k, paged.tables), v=gather_paged_kv(paged.v, paged.tables),
-                        lengths=lengths0.clone())
+        cache = KVCache(k=self._gather_pool(paged, paged.k, paged.k_scale),
+                        v=self._gather_pool(paged, paged.v, paged.v_scale), lengths=lengths0.clone())
         out, token, cache, rem = self.decode_steps(cache, tokens, remaining0, chunk, generator)
         _scatter_chunk(paged, cache, lengths0, remaining0, chunk)
         paged.lengths.copy_(cache.lengths)
         return out, token, paged, rem
+
+    def _gather_pool(self, paged: PagedKVCache, pool, scales) -> torch.Tensor:
+        """A pool half gathered along the tables into the contiguous layout,
+        dequantized into the model dtype when quantized."""
+        g = gather_paged_kv(pool, paged.tables)
+        if paged.quant is None:
+            return g
+        return dequantize_kv(g, gather_paged_kv(scales, paged.tables), self.model.params.embed.dtype)
 
     def spec_decode_steps_paged(self, paged: PagedKVCache, dstate, tokens, remaining, chunk: int, k: int):
         """Speculative twin of ``decode_steps_paged``: not ported yet."""
@@ -357,5 +378,18 @@ def _scatter_chunk(paged: PagedKVCache, cache: KVCache, lengths0: torch.Tensor,
         blk = torch.gather(paged.tables, 1, (pos // bs)[:, None])[:, 0].long()
         phys = torch.where(r < nv, blk, torch.full_like(blk, NULL_BLOCK))
         sub = pos % bs
-        paged.k[:, phys, :, sub] = cache.k[:, rows, :, pos]
-        paged.v[:, phys, :, sub] = cache.v[:, rows, :, pos]
+        _put_rows(paged.k, paged.k_scale, paged.quant, (slice(None), phys, slice(None), sub),
+                  cache.k[:, rows, :, pos])
+        _put_rows(paged.v, paged.v_scale, paged.quant, (slice(None), phys, slice(None), sub),
+                  cache.v[:, rows, :, pos])
+
+
+def _put_rows(pool: torch.Tensor, scales: torch.Tensor | None, quant: str | None, index, rows: torch.Tensor):
+    """``pool[index] = rows``; a quantized pool takes the rows quantized once
+    (payload moved as bytes, scales beside it)."""
+    if quant is None:
+        pool[index] = rows
+        return
+    q, s = quantize_kv_rows(rows, quant)
+    pool.view(torch.uint8)[index] = q.view(torch.uint8)
+    scales[index] = s

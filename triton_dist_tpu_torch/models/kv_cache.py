@@ -8,7 +8,9 @@ slot, with per-slot int32 block tables. ``BlockAllocator`` is the host-side
 bookkeeping of that pool, a copy of the JAX one (which imports no JAX
 itself, but sits in a package that does). The JAX handles are updated
 functionally and donated through jit; these are updated in place by the
-engine's steps.
+engine's steps. A paged pool may be quantized (``quant="int8"|"fp8"``,
+``models/quant.py``): payload pools in the wire dtype beside per-row f32
+scale pools.
 """
 
 from __future__ import annotations
@@ -18,8 +20,7 @@ import dataclasses
 import torch
 
 from triton_dist_tpu_torch.kernels.flash_decode import NULL_BLOCK  # noqa: F401
-
-_QUANT_POOLS = "quantized KV pools (int8/fp8 with row scales) are ROADMAP queue 1 item E"
+from triton_dist_tpu_torch.models.quant import QuantPool, wire_dtype
 
 
 @dataclasses.dataclass
@@ -135,30 +136,56 @@ class PagedKVCache:
     contiguous cache carries. Batch composition and chain layout change
     the tables' data, never a shape. The serving layer owns ``tables`` and
     ``lengths`` and sets them on the handle; the engine's steps write the
-    pools in place and return the handle with new ``lengths``."""
+    pools in place and return the handle with new ``lengths``.
+
+    With ``quant`` set ("int8"/"fp8") ``k``/``v`` hold the wire dtype and
+    ``k_scale``/``v_scale`` are the parallel scale pools (L, num_blocks,
+    Hkv, block_size, 1) f32, one scale per stored row, written once by
+    whichever write appended the row; gathers and copies move the
+    (payload, scale) pair and never derive a scale again."""
 
     k: torch.Tensor
     v: torch.Tensor
     tables: torch.Tensor  # (B, max_blocks) int32
     lengths: torch.Tensor  # (B,) int32
     block_size: int
+    k_scale: torch.Tensor | None = None  # (L, blocks, Hkv, bs, 1) f32 when quant
+    v_scale: torch.Tensor | None = None
+    quant: str | None = None  # None | "int8" | "fp8"
 
     @staticmethod
     def create(num_layers, num_slots, num_kv_heads, head_dim, *, block_size, num_blocks, max_len,
                dtype, device, quant: str | None = None) -> "PagedKVCache":
         """A zeroed pool (so NULL-block reads are finite) and all-NULL tables
-        sized for ``max_len``."""
+        sized for ``max_len``; quantized, scale pools of 1.0 (the scale of a
+        zero row), so NULL-block rows dequantize to exact zeros."""
         if quant is not None:
-            raise NotImplementedError(_QUANT_POOLS)
+            dtype = wire_dtype(quant)
         shape = (num_layers, num_blocks, num_kv_heads, block_size, head_dim)
         max_blocks = -(-max_len // block_size)
+        k_scale = v_scale = None
+        if quant is not None:
+            sshape = shape[:-1] + (1,)
+            k_scale = torch.ones(sshape, dtype=torch.float32, device=device)
+            v_scale = torch.ones(sshape, dtype=torch.float32, device=device)
         return PagedKVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
             tables=torch.zeros((num_slots, max_blocks), dtype=torch.int32, device=device),
             lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
             block_size=block_size,
+            k_scale=k_scale,
+            v_scale=v_scale,
+            quant=quant,
         )
+
+    def pool_pair(self):
+        """The (pk, pv) a paged step takes: the pools, or ``QuantPool`` pairs
+        of views when quantized (JAX ``Engine._pool_pair``); a step writes
+        through them into this handle's tensors."""
+        if self.quant is None:
+            return self.k, self.v
+        return QuantPool(self.k, self.k_scale, self.quant), QuantPool(self.v, self.v_scale, self.quant)
 
     @property
     def num_blocks(self) -> int:
@@ -174,6 +201,10 @@ class PagedKVCache:
 
     @property
     def bytes_per_block(self) -> int:
-        """Device bytes one pool block costs across the k and v pools."""
+        """Device bytes one pool block costs across the k and v payload pools
+        and, quantized, their scale pools (JAX's count)."""
         nl, _, hkv, bs, hd = self.k.shape
-        return 2 * nl * hkv * bs * hd * self.k.element_size()
+        per = 2 * nl * hkv * bs * hd * self.k.element_size()
+        if self.k_scale is not None:
+            per += 2 * nl * hkv * bs * self.k_scale.element_size()
+        return per

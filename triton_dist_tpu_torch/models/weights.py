@@ -9,6 +9,12 @@ places it (``dense.py:51-68``; ``models.dense.shard``): ``wqkv``,
 ``mlp_gate``, ``mlp_up`` and ``lm_head`` by contiguous column blocks,
 ``wo`` and ``mlp_down`` by row blocks, the rest whole; with
 ``expert_parallel`` the expert slabs by whole experts instead.
+
+``quant_pool_from_numpy`` and ``quant_tensor_from_numpy`` carry the JAX
+package's quantized state (``models/quant.py``: a ``QuantPool`` half or a
+paged pool's payload and scale pools; a ``QuantTensor``, whose scales JAX
+replicates over 128 lanes, of which column 0 is taken) into the port's
+types, byte for byte.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from triton_dist_tpu_torch.models.config import ModelConfig, torch_dtype
 from triton_dist_tpu_torch.models.dense import DenseParams, shard
+from triton_dist_tpu_torch.models.quant import QuantPool, QuantTensor, wire_dtype
 from triton_dist_tpu_torch.runtime.platform import resolve_device
 
 
@@ -80,3 +87,34 @@ def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
             raise ValueError(f"{f.name}: shape {a.shape}, expected {expect[f.name]}")
         out[f.name] = _to_tensor(shard(f.name, a, rank, world, expert_parallel), dt, device)
     return DenseParams(**out)
+
+
+def _payload(a: np.ndarray, wire: str, device: torch.device) -> torch.Tensor:
+    """A JAX int8 or float8_e4m3fn payload as the port's tensor, same bytes."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.itemsize != 1:
+        raise ValueError(f"a {wire} payload has 1-byte elements, got {a.dtype}")
+    return torch.from_numpy(a.view(np.uint8).copy()).view(wire_dtype(wire)).to(device)
+
+
+def quant_pool_from_numpy(q: np.ndarray, scale: np.ndarray, wire: str,
+                          device: str | torch.device | None = None) -> QuantPool:
+    """A quantized pool half (payload (..., bs, D) and scales (..., bs, 1)
+    f32) from JAX's arrays as numpy."""
+    device = resolve_device(device)
+    scale = np.asarray(scale, np.float32)
+    if scale.shape != np.shape(q)[:-1] + (1,):
+        raise ValueError(f"scales {scale.shape} do not fit a payload {np.shape(q)}")
+    return QuantPool(_payload(q, wire, device), torch.from_numpy(scale.copy()).to(device), wire)
+
+
+def quant_tensor_from_numpy(q: np.ndarray, scale: np.ndarray, wire: str,
+                            device: str | torch.device | None = None) -> QuantTensor:
+    """A ``QuantTensor`` from JAX's payload (rows, cols) and its scales,
+    lane-replicated (rows, 128) or (rows, 1): column 0 is the row's scale."""
+    device = resolve_device(device)
+    scale = np.asarray(scale, np.float32)
+    if q.ndim != 2 or scale.ndim != 2 or scale.shape[0] != q.shape[0]:
+        raise ValueError(f"a payload {q.shape} with scales {scale.shape}")
+    return QuantTensor(_payload(q, wire, device), torch.from_numpy(np.ascontiguousarray(scale[:, :1])).to(device),
+                       wire)
