@@ -84,8 +84,18 @@ then, on the card:
    (``ring_attention_fn``) and the EP MoE (``ep_moe_fused_fn``) at full
    width, each first at a small fp32 size card vs CPU, then two SGD steps
    with the loss falling, replicated gradients the same bits on every rank
-   and the launch counts as predicted; last, an abort test: three ranks
-   call row 22 without the fourth and end in a named ``CollectiveAbort``;
+   and the launch counts as predicted, and, fourth, the same attention
+   block through ``ag_attention_fn`` (row 27 forward, row 5 and a
+   reduce-scatter backward) at S_local 384; before it (5i)
+   sequence-parallel attention at world 4: ``AGSPAttn`` (row 27 where
+   JAX's plan fits, the ring where it does not), ``RingSPAttn`` (causal,
+   packed), ``UlyssesSPAttn`` (row 25), the fused Ulysses projections and
+   ``ag_attention_fn``'s gradients, small fp32 card vs CPU, then at
+   Qwen3-8B's attention width in bf16 against row 1 over the gathered
+   sequence with their launch counts and a profile line each, and row 27
+   against its plain version, timed; last, the abort tests: three ranks
+   call row 22, then row 27, without the fourth and each ends in a named
+   ``CollectiveAbort``;
 6. trains Qwen3-8B's attention block at world 1 (embed, RMSNorm, wqkv,
    RoPE, ``flash_attention_fn``, wo; B 1, S 4096, bf16): three SGD steps,
    then three through ``flash_attention_varlen_fn`` on a packed batch, the
@@ -93,8 +103,10 @@ then, on the card:
 7. prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
 ``python3 chip_smoke.py --quant-collectives`` runs phase 5a-q alone (rows
-16q-19q against their plain versions, timed, and their entry points),
-for the four-card measurement.
+16q-19q against their plain versions, timed, and their entry points), and
+``python3 chip_smoke.py --sequence-parallel`` phase 5i alone (the
+sequence-parallel layers and row 27, timed), each for the four-card
+measurement.
 
 It exits nonzero and prints no result when CUDA is unavailable, when run
 away from the repository, or when any phase fails.
@@ -187,6 +199,17 @@ TRAIN_S = 4096
 TRAIN_CU = (0, 512, 1536, 3072, 4072)
 TRAIN_STEPS, TRAIN_STEPS_W4 = 3, 2
 TRAIN_MLP_TOKENS, TRAIN_RING_TOKENS, TRAIN_EP_TOKENS = 512, 1024, 256
+# Phase 5i: sequence-parallel attention at world 4 at Qwen3-8B's attention
+# width (Hq 32, Hkv 8, D 128), bf16, B 1. AGSPAttn at S_local 384 (global
+# 1536), the largest multiple of 128 whose TPU plan with residuals fits
+# JAX's default 100 MB, so row 27; and at 1024 (global 4096), where it does
+# not fit, so the ring. The ring (causal, and packed as TRAIN_CU), Ulysses
+# with row 25 and the fused Ulysses projections run at 4 x 1024. 5g's fourth
+# workload trains the attention block through ag_attention_fn at S_local
+# 384.
+SP_AG_TOKENS, SP_RING_TOKENS = 384, 1024
+#: The sequence-parallel kernel (row 27).
+SP_KERNELS = ("ag_attn_kernel",)
 SGD_STEP = 0.01
 FP32_KERNEL_TOL = 1e-4  # fp32 SIMT kernels vs fp32 plain versions, another summation order
 #: The training kernels (rows 4, 5 and 6).
@@ -284,7 +307,8 @@ _SHMEM_FAMILIES = (("ag_push", "ag_gemm_fused"), ("ag_gemm", "ag_gemm_fused"),
                    ("ep_gate_up", "fused_ep_kernel gate/up"), ("ep_down", "fused_ep_kernel down"),
                    ("ep_combine", "fused_ep_kernel combine"), ("ring_ag_kernel", "ring_ag_call"),
                    ("fullmesh_ag_kernel", "full_mesh_ag_call"), ("ring_rs_kernel", "ring_rs_call"),
-                   ("one_shot_ar_kernel", "one_shot_ar_call"))
+                   ("one_shot_ar_kernel", "one_shot_ar_call"), ("ag_kv_push", "ag_attn_kernel push"),
+                   ("ag_attn_", "ag_attn_kernel"))
 
 
 def _family(kernel_name: str) -> str:
@@ -1444,7 +1468,7 @@ def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str,
         "fused_norm_head": steps if mega else 0,
         "fused_moe_block": layers * steps if mega and cfg.is_moe else 0,
         **{name: 0 for name in COLLECTIVE_KERNELS + EP_KERNELS + STANDALONE_KERNELS + QUANT_KERNELS},  # world 1
-        **{name: 0 for name in TRAIN_KERNELS},  # serving runs no training kernel
+        **{name: 0 for name in TRAIN_KERNELS + SP_KERNELS},  # serving runs no training kernel, no SP
     }
 
 
@@ -2207,13 +2231,15 @@ def standalone_host_ops(ctx) -> dict[str, int]:
 
 
 def abort_world4(ctx) -> None:
-    """5a''s abort test, run last in the ranks (it leaves the status words
-    set): every rank but the last calls row 22 with its waits bounded by 2 s;
-    each must end in a ``CollectiveAbort`` naming the phase ``ar_recv`` and
+    """The abort tests, run last in the ranks (they leave the status words
+    set): every rank but the last calls row 22 (5a'), then, with the status
+    word cleared, row 27 (5i; its first wait on a peer is for the absent
+    rank), with its waits bounded by 2 s; each call must end in a
+    ``CollectiveAbort`` naming its phase (``ar_recv``, ``ag_kv_recv``) and
     the absent rank, not a hang."""
     import torch
 
-    from triton_dist_tpu_torch.kernels import one_shot_ar_call
+    from triton_dist_tpu_torch.kernels import ag_attn_kernel, one_shot_ar_call
     from triton_dist_tpu_torch.shmem.symm import CollectiveAbort
 
     absent = ctx.world - 1
@@ -2221,17 +2247,24 @@ def abort_world4(ctx) -> None:
     if ctx.rank == absent:
         rlog(ctx, "abort test: this rank stays away")
         return
-    t0 = time.perf_counter()
-    one_shot_ar_call(ctx, torch.ones((4, 4096), dtype=torch.bfloat16, device=ctx.device))
-    try:
-        ctx.check_status()
-    except CollectiveAbort as e:
-        msg = str(e)
-    else:
-        raise AssertionError("abort test: row 22 without rank 3 ended without an abort")
-    if "'ar_recv'" not in msg or f"rank {absent}" not in msg:
-        raise AssertionError(f"abort test: the abort does not name the phase and the peer: {msg}")
-    rlog(ctx, f"abort test: {msg} ({time.perf_counter() - t0:.2f} s)")
+    q = torch.ones((1, 32, SP_AG_TOKENS, 128), dtype=torch.bfloat16, device=ctx.device)
+    kv = torch.ones((1, 8, SP_AG_TOKENS, 128), dtype=torch.bfloat16, device=ctx.device)
+    for label, phase, call in (
+            ("row 22", "ar_recv",
+             lambda: one_shot_ar_call(ctx, torch.ones((4, 4096), dtype=torch.bfloat16, device=ctx.device))),
+            ("row 27", "ag_kv_recv", lambda: ag_attn_kernel(ctx, q, kv, kv))):
+        ctx.heap.status.zero_()
+        t0 = time.perf_counter()
+        call()
+        try:
+            ctx.check_status()
+        except CollectiveAbort as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"abort test: {label} without rank {absent} ended without an abort")
+        if f"'{phase}'" not in msg or f"rank {absent}" not in msg:
+            raise AssertionError(f"abort test: the abort does not name the phase and the peer: {msg}")
+        rlog(ctx, f"abort test {label}: {msg} ({time.perf_counter() - t0:.2f} s)")
 
 
 def parity_world4(ctx) -> None:
@@ -3024,13 +3057,13 @@ def _tp_mlp_loss(ctx, x, ln, w_gu, w_down):
     return (out.float() ** 2).sum() / (ctx.world * out.numel())
 
 
-def _ring_loss(ctx, x, wqkv, wo, heads):
+def _attn_block_loss(ctx, x, wqkv, wo, heads, attention):
     """One attention block on this rank's sequence shard: wqkv and wo
-    replicated, RoPE at global positions, causal ``ring_attention_fn``; this
+    replicated, RoPE at global positions, causal ``attention`` (the
+    differentiable ``ring_attention_fn`` or ``ag_attention_fn``); this
     rank's share of the mean of out²."""
     import torch
 
-    from triton_dist_tpu_torch.function import ring_attention_fn
     from triton_dist_tpu_torch.kernels.norm_rope import apply_rope
 
     hq, hkv, hd = heads
@@ -3039,7 +3072,7 @@ def _ring_loss(ctx, x, wqkv, wo, heads):
     qkv = torch.matmul(x.float(), wqkv.float()).to(x.dtype).reshape(1, s_loc, hq + 2 * hkv, hd)
     q = apply_rope(qkv[:, :, :hq].transpose(1, 2), pos)
     k = apply_rope(qkv[:, :, hq:hq + hkv].transpose(1, 2), pos)
-    o = ring_attention_fn(ctx, q, k, qkv[:, :, hq + hkv:].transpose(1, 2), causal=True)
+    o = attention(ctx, q, k, qkv[:, :, hq + hkv:].transpose(1, 2))
     out = torch.matmul(o.transpose(1, 2).reshape(s_loc, hq * hd).float(), wo.float())
     return (out ** 2).sum() / (ctx.world * out.numel())
 
@@ -3055,7 +3088,7 @@ def _ep_loss(ctx, x, w_router, wg, wu, wd, top_k):
 
 
 def _train_parts(ctx, dtype, small: bool):
-    """The three world-4 training workloads as (label, loss_fn(ctx,
+    """The four world-4 training workloads as (label, loss_fn(ctx,
     *params), params on ``ctx``'s card, replicated flags): full width in
     bf16, or ``small`` (fp32) for the card-vs-CPU check. Replicated tensors
     come from one seed on every rank, sharded ones from a seed of the
@@ -3064,6 +3097,7 @@ def _train_parts(ctx, dtype, small: bool):
 
     import torch
 
+    from triton_dist_tpu_torch.function import ag_attention_fn, ring_attention_fn
     from triton_dist_tpu_torch.models import PRESETS
 
     me, w = ctx.rank, ctx.world
@@ -3076,11 +3110,11 @@ def _train_parts(ctx, dtype, small: bool):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
     if small:
-        d, ff, m, heads, s_loc = 256, 512, 96, (4, 2, 64), 64
+        d, ff, m, heads, s_loc, s_ag = 256, 512, 96, (4, 2, 64), 64, 64
         de, e, ffe, t, top_k = 64, 8, 48, 16, 2
     else:
-        d, ff, m, heads, s_loc = c8.hidden_size, c8.intermediate_size, TRAIN_MLP_TOKENS, (
-            c8.num_q_heads, c8.num_kv_heads, c8.head_dim), TRAIN_RING_TOKENS
+        d, ff, m, heads, s_loc, s_ag = c8.hidden_size, c8.intermediate_size, TRAIN_MLP_TOKENS, (
+            c8.num_q_heads, c8.num_kv_heads, c8.head_dim), TRAIN_RING_TOKENS, SP_AG_TOKENS
         de, e, ffe, t, top_k = cm.hidden_size, cm.num_experts, cm.moe_intermediate_size, TRAIN_EP_TOKENS, cm.top_k
     hq, hkv, hd = heads
     fl = ff // w
@@ -3088,16 +3122,20 @@ def _train_parts(ctx, dtype, small: bool):
            [randn(700 + me, m, d), torch.ones(d, dtype=dtype, device=dev),
             randn(710 + me, d, 2 * fl, scale=d ** -0.5), randn(720 + me, fl, d, scale=ff ** -0.5)],
            [False, True, False, False])
-    ring = ("ring-attention", functools.partial(_ring_loss, heads=heads),
+    ring = ("ring-attention", functools.partial(_attn_block_loss, heads=heads, attention=ring_attention_fn),
             [randn(730 + me, s_loc, d), randn(740, d, (hq + 2 * hkv) * hd, scale=d ** -0.5),
              randn(750, hq * hd, d, scale=(hq * hd) ** -0.5)],
             [False, True, True])
+    ag = ("ag-attention", functools.partial(_attn_block_loss, heads=heads, attention=ag_attention_fn),
+          [randn(810 + me, s_ag, d), randn(740, d, (hq + 2 * hkv) * hd, scale=d ** -0.5),
+           randn(750, hq * hd, d, scale=(hq * hd) ** -0.5)],
+          [False, True, True])
     el = e // w
     ep = ("ep-moe", functools.partial(_ep_loss, top_k=top_k),
           [randn(760 + me, t, de), randn(770, de, e, scale=de ** -0.5), randn(780 + me, el, de, ffe, scale=de ** -0.5),
            randn(790 + me, el, de, ffe, scale=de ** -0.5), randn(800 + me, el, ffe, de, scale=ffe ** -0.5)],
           [False, True, False, False, False])
-    return [mlp, ring, ep]
+    return [mlp, ring, ep, ag]
 
 
 def _grads_of(ctx, loss_fn, params, replicated):
@@ -3129,11 +3167,13 @@ def expected_train_world4(world: int, label: str, params, replicated) -> dict[st
     forward. TP MLP a step: row 16 (gate/up) and row 17 (down) forward, row
     17 in gate/up's backward (down's backward takes the plain ring, as in
     JAX). Ring a step: one row 1 and one row 5 call (two launches) per ring
-    step. EP a step: row 25 twice forward and twice backward, row 8 once.
-    Every plain collective is two barriers: the rings of the MLP's backward
-    (three gathers), the ring's KV shifts (2·(world - 1) each way), the sums
-    of the replicated gradients (in pieces of the plain slot), of the loss
-    and, once, of the squared norms."""
+    step. EP a step: row 25 twice forward and twice backward, row 8 once. AG
+    a step: row 27 forward, row 5 (two launches) backward. Every plain
+    collective is two barriers: the rings of the MLP's backward (three
+    gathers), the ring's KV shifts (2·(world - 1) each way), the AG
+    backward's reduce-scatters of dk and dv (``mesh.psum_scatter``, two),
+    the sums of the replicated gradients (in pieces of the plain slot), of
+    the loss and, once, of the squared norms."""
     from triton_dist_tpu_torch.kernels import KERNELS
 
     n = TRAIN_STEPS_W4
@@ -3148,6 +3188,9 @@ def expected_train_world4(world: int, label: str, params, replicated) -> dict[st
     elif label == "ring-attention":
         want.update(flash_attention=world * (n + 1), flash_attention_bwd=2 * world * n)
         fwd = bwd = 2 * (world - 1)
+    elif label == "ag-attention":
+        want.update(ag_attn_kernel=n + 1, flash_attention_bwd=2 * n)
+        fwd, bwd = 0, 2
     else:
         want.update(all_to_all_kernel=4 * n + 2, group_gemm_swiglu=n + 1)
         fwd = bwd = 0
@@ -3156,7 +3199,9 @@ def expected_train_world4(world: int, label: str, params, replicated) -> dict[st
 
 
 def train_world4(ctx) -> dict[str, int]:
-    """5g: three training workloads at world 4 in the rank processes. First,
+    """5g: four training workloads at world 4 in the rank processes (the TP
+    MLP, the causal ring, the EP MoE, the attention block through
+    ``ag_attention_fn``). First,
     each at a small size in fp32 on the card and on the CPU (the same ranks,
     ``ctx.on_cpu()``): gradients within ``FP32_LOGITS_TOL`` of their largest
     (``close_scaled``: the losses are means). Then each at
@@ -3226,9 +3271,262 @@ def train_world4(ctx) -> dict[str, int]:
     return total
 
 
-def _rank_main(rank: int, port: int, results, quant_only: bool = False) -> None:
-    """One rank of phase 5, in its own process: 5a-5h, then the abort test
-    (with ``quant_only``, 5a-q alone). Any failure reaches the parent as an
+# ------------------------------- 5i. sequence-parallel attention at world 4
+
+def _seq_shard(ctx, seed: int, shape, dim: int, dtype, scale: float = 1.0):
+    """This rank's block along ``dim`` of a tensor every rank draws whole
+    from one seed, on the card."""
+    import torch
+
+    g = torch.Generator(device=ctx.device).manual_seed(SEED + seed)
+    full = torch.randn(shape, generator=g, device=ctx.device) * scale
+    n = shape[dim] // ctx.world
+    return full.narrow(dim, ctx.rank * n, n).contiguous().to(dtype)
+
+
+def _sp_small_parity(ctx) -> None:
+    """5i, small fp32 (Hq 4, Hkv 2, D 64, S_local 64; Ulysses Hq 8, Hkv 4):
+    every sequence-parallel layer and function on the card against the CPU
+    (``ctx.on_cpu()``, the plain versions over gloo) inside the same ranks,
+    within ``FP32_LOGITS_TOL``: ``AGSPAttn`` on both routes (row 27, the
+    ring), ``RingSPAttn`` causal and packed, ``UlyssesSPAttn`` on both
+    transports, the four fused Ulysses GEMM-all-to-all functions and
+    ``ag_attention_fn``'s gradients."""
+    import torch
+
+    from triton_dist_tpu_torch.function import ag_attention_fn
+    from triton_dist_tpu_torch.kernels import sp as ksp
+    from triton_dist_tpu_torch.layers import AGSPAttn, RingSPAttn, UlyssesSPAttn
+
+    w, cpu, f32 = ctx.world, ctx.on_cpu(), torch.float32
+    b, hq, hkv, s_loc, d = 1, 4, 2, 64, 64
+    s = w * s_loc
+    q, k, v = (_seq_shard(ctx, 900 + i, (b, h, s, d), 2, f32) for i, h in enumerate((hq, hkv, hkv)))
+    qu, ku, vu = (_seq_shard(ctx, 903 + i, (b, s, h, d), 1, f32) for i, h in enumerate((8, 4, 4)))
+    cu = (0, 100, 180, 250)  # three documents over the 256-token stream, 6 padding rows
+    dm, m, kd, n = 256, 32, 64, 96
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 906)  # the same draws on every rank
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=ctx.device)
+
+    x, wg = rnd(w, m, kd)[ctx.rank].contiguous(), rnd(kd, n)
+    chunks, w2 = rnd(w, w, m, kd // w)[ctx.rank].contiguous(), rnd(kd, n)
+    x3, wqkv = _seq_shard(ctx, 907, (b, s, dm), 1, f32), rnd(dm, 16 * d) * dm ** -0.5
+    o_h, wo = rnd(w, b, s, 2, d)[ctx.rank].contiguous(), rnd(8 * d, dm) * (8 * d) ** -0.5
+    cases = {
+        "AGSPAttn (row 27)": lambda c, t: AGSPAttn(c)(*t[:3]),
+        "AGSPAttn vmem_limit_mb=0 (the ring)": lambda c, t: AGSPAttn(c, vmem_limit_mb=0)(*t[:3]),
+        "RingSPAttn causal": lambda c, t: RingSPAttn(c)(*t[:3]),
+        "RingSPAttn packed": lambda c, t: RingSPAttn(c)(*t[:3], cu_seqlens=cu),
+        "UlyssesSPAttn row 25": lambda c, t: UlyssesSPAttn(c, use_pallas_a2a=True)(*t[3:6]),
+        "UlyssesSPAttn plain a2a": lambda c, t: UlyssesSPAttn(c)(*t[3:6]),
+        "gemm_a2a_shard": lambda c, t: ksp.gemm_a2a_shard(c, t[6], t[7]),
+        "a2a_gemm_shard": lambda c, t: ksp.a2a_gemm_shard(c, t[8], t[9]),
+        "ulysses_qkv_gemm_a2a_shard": lambda c, t: torch.cat([y.flatten() for y in ksp.ulysses_qkv_gemm_a2a_shard(
+            c, t[10], t[11], num_q_heads=8, num_kv_heads=4, head_dim=d)]),
+        "ulysses_o_a2a_gemm_shard": lambda c, t: ksp.ulysses_o_a2a_gemm_shard(c, t[12], t[13]),
+    }
+    ins = (q, k, v, qu, ku, vu, x, wg, chunks, w2, x3, wqkv, o_h, wo)
+    ins_cpu = tuple(t.cpu() for t in ins)
+    errs = {}
+    for label, f in cases.items():
+        errs[label] = close(f(ctx, ins).cpu(), f(cpu, ins_cpu), FP32_LOGITS_TOL, FP32_LOGITS_TOL)
+    c = rnd(b, hq, s_loc, d)
+    grads = []
+    for cx, leaves in ((ctx, (q, k, v)), (cpu, ins_cpu[:3])):
+        leaves = [t.clone().requires_grad_() for t in leaves]
+        (ag_attention_fn(cx, *leaves) * c.to(leaves[0].device)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    errs["ag_attention_fn gradients (of max|grad|)"] = max(
+        close_scaled(a.cpu(), b_, FP32_LOGITS_TOL) for a, b_ in zip(*grads))
+    ctx.check_status()
+    rlog(ctx, "5i parity fp32 (small), card vs CPU, max|err| (tol " + f"{FP32_LOGITS_TOL}): "
+         + "; ".join(f"{k} {v_:.3e}" for k, v_ in errs.items()))
+
+
+def expected_sp_world4(world: int) -> dict[str, dict[str, int]]:
+    """Launches of each 5i layer call at full width. ``AGSPAttn`` at S_local
+    384: row 27 once. The ring (``AGSPAttn`` at 1024, ``RingSPAttn``): row 1
+    (row 4 packed) once a ring step, and two barriers for each of the
+    2·(world - 1) KV shifts (``mesh.ppermute``, a plain collective).
+    Ulysses: row 25 for q, k, v and the output, row 1 once. The fused
+    projections: world - 1 shifts each."""
+    ring = {"barrier_all_on_device": 4 * (world - 1)}
+    return {
+        f"AGSPAttn S_local {SP_AG_TOKENS}": {"ag_attn_kernel": 1},
+        f"AGSPAttn S_local {SP_RING_TOKENS}": {"flash_attention": world, **ring},
+        "RingSPAttn causal": {"flash_attention": world, **ring},
+        "RingSPAttn packed": {"flash_attention_varlen": world, **ring},
+        "UlyssesSPAttn row 25": {"all_to_all_kernel": 4, "flash_attention": 1},
+        "ulysses_qkv_gemm_a2a_shard": {"barrier_all_on_device": 2 * (world - 1)},
+        "ulysses_o_a2a_gemm_shard": {"barrier_all_on_device": 2 * (world - 1)},
+    }
+
+
+def sp_world4(ctx, flush_buf, nccl) -> tuple[dict[str, dict], dict[str, int]]:
+    """5i: sequence-parallel attention at world 4. First the small fp32
+    card-vs-CPU check (``_sp_small_parity``). Then at Qwen3-8B's attention
+    width in bf16 (B 1): each layer call's output held against row 1 over
+    the gathered whole sequence (row 4 for the packed ring; the plain
+    all-gather and fp32 products for the projections) within ``1e-2 +
+    2e-2·|ref|``, its launches, read around the call alone, equal to
+    ``expected_sp_world4``, and one profile line each. Last, row 27 as a
+    kernel entry at S_local 384 with residuals: against
+    ``ag_attention_reference`` (o and lse within tolerance, k_full and v_full
+    bitwise), timed beside its plain version, its bound and, with a card a
+    rank, a separate NCCL group's ``all_gather_into_tensor`` of K and V plus
+    SDPA under the rank's causal mask. Returns the entry and the sum of the
+    layer calls' launches."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.kernels import sp as ksp
+    from triton_dist_tpu_torch.kernels.ag_attention import (
+        ag_attention_cost,
+        ag_attention_reference,
+        ag_attention_supported,
+        ag_attn_kernel,
+    )
+    from triton_dist_tpu_torch.kernels.flash_attn import flash_attention, flash_attention_varlen
+    from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
+    from triton_dist_tpu_torch.layers import AGSPAttn, RingSPAttn, UlyssesSPAttn
+    from triton_dist_tpu_torch.models import PRESETS
+    from triton_dist_tpu_torch.runtime import mesh
+
+    _sp_small_parity(ctx)
+    cfg = PRESETS["qwen3-8b"]
+    w, me, bf = ctx.world, ctx.rank, torch.bfloat16
+    hq, hkv, d, dm = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    for s_loc, fits in ((SP_AG_TOKENS, True), (SP_RING_TOKENS, False), (SP_AG_TOKENS + 64, False)):
+        if ag_attention_supported(w, 1, hq, hkv, s_loc, d, 2, with_residuals=True) != fits:
+            raise AssertionError(f"5i: JAX's plan check at S_local {s_loc}: expected fits={fits}")
+
+    def qkv_shards(seed, s_loc, layout="bhsd"):
+        s = w * s_loc
+        if layout == "bhsd":
+            return tuple(_seq_shard(ctx, seed + i, (1, h, s, d), 2, bf) for i, h in enumerate((hq, hkv, hkv)))
+        return tuple(_seq_shard(ctx, seed + i, (1, s, h, d), 1, bf) for i, h in enumerate((hq, hkv, hkv)))
+
+    def row1_over_gathered(q, k, v):
+        kf, vf = mesh.all_gather(ctx, k, dim=2), mesh.all_gather(ctx, v, dim=2)
+        return flash_attention(q, kf, vf, causal=True, q_offset=me * q.shape[2], kv_offset=0)
+
+    want_all = expected_sp_world4(w)
+    total = {name: 0 for name in KERNELS}
+
+    def run(label, call, reference, against="row 1 over the gathered sequence"):
+        torch.cuda.synchronize()
+        ctx.host_barrier()
+        reset_launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        launches = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+        if launches != want_all[label]:
+            raise AssertionError(f"5i {label}: launches {launches}, expected {want_all[label]}")
+        for name, n in launches.items():
+            total[name] += n
+        err = close(got, reference(), BF16_ATOL, BF16_RTOL)
+        for _ in range(2):  # the profiler now and then records no kernel of a window: every rank once more
+            ctx.host_barrier()
+            wall, busy, families, n_kernels = profile_window(call)
+            missed = [None] * w
+            dist.all_gather_object(missed, busy is None, group=ctx.group)
+            if not any(missed):
+                break
+        rlog(ctx, f"5i {label} (qwen3-8b attention, bf16): max|err| {err:.3e} against {against}; launches "
+             f"{launches} as predicted; profile: wall {wall:.2f} ms, "
+             + ("device time not measured (no CUDA kernels recorded)" if busy is None else
+                f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), {n_kernels} kernels; by family: "
+                + ", ".join(f"{k_} {v_:.3f} ms" for k_, v_ in sorted(families.items(), key=lambda kv: -kv[1]))))
+
+    ag_in = qkv_shards(910, SP_AG_TOKENS)
+    run(f"AGSPAttn S_local {SP_AG_TOKENS}", lambda: AGSPAttn(ctx)(*ag_in), lambda: row1_over_gathered(*ag_in))
+    ring_in = qkv_shards(920, SP_RING_TOKENS)
+    run(f"AGSPAttn S_local {SP_RING_TOKENS}", lambda: AGSPAttn(ctx)(*ring_in), lambda: row1_over_gathered(*ring_in))
+    run("RingSPAttn causal", lambda: RingSPAttn(ctx)(*ring_in), lambda: row1_over_gathered(*ring_in))
+
+    def packed_reference():
+        qf, kf, vf = (mesh.all_gather(ctx, t, dim=2)[0] for t in ring_in)
+        rows = slice(me * SP_RING_TOKENS, (me + 1) * SP_RING_TOKENS)
+        return flash_attention_varlen(qf, kf, vf, list(TRAIN_CU))[:, rows][None]
+
+    run("RingSPAttn packed", lambda: RingSPAttn(ctx)(*ring_in, cu_seqlens=list(TRAIN_CU)), packed_reference,
+        "row 4 over the gathered packed sequence")
+    uly_in = qkv_shards(930, SP_RING_TOKENS, layout="bshd")
+
+    def ulysses_reference():
+        qf, kf, vf = (mesh.all_gather(ctx, t, dim=1).transpose(1, 2).contiguous() for t in uly_in)
+        rows = slice(me * SP_RING_TOKENS, (me + 1) * SP_RING_TOKENS)
+        return flash_attention(qf, kf, vf, causal=True)[:, :, rows].transpose(1, 2)
+
+    run("UlyssesSPAttn row 25", lambda: UlyssesSPAttn(ctx, use_pallas_a2a=True)(*uly_in), ulysses_reference)
+    # The fused projections on Qwen3-8B's shapes, wqkv and wo group-major.
+    hq_l, hkv_l = hq // w, hkv // w
+    cols = (hq_l + 2 * hkv_l) * d
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 940)  # the same draws on every rank
+    wqkv = (torch.randn((dm, w * cols), generator=gen, device=ctx.device) * dm ** -0.5).to(bf)
+    wo = (torch.randn((hq * d, dm), generator=gen, device=ctx.device) * (hq * d) ** -0.5).to(bf)
+    x = _seq_shard(ctx, 941, (1, w * SP_RING_TOKENS, dm), 1, bf)
+
+    def qkv_call():
+        return torch.cat([t.flatten() for t in ksp.ulysses_qkv_gemm_a2a_shard(
+            ctx, x, wqkv, num_q_heads=hq, num_kv_heads=hkv, head_dim=d)])
+
+    def qkv_reference():
+        xf = mesh.all_gather(ctx, x, dim=1)[0]
+        y = matmul_f32(xf, wqkv[:, me * cols:(me + 1) * cols]).to(bf).reshape(1, -1, hq_l + 2 * hkv_l, d)
+        return torch.cat([t.flatten() for t in (y[:, :, :hq_l], y[:, :, hq_l:hq_l + hkv_l], y[:, :, hq_l + hkv_l:])])
+
+    run("ulysses_qkv_gemm_a2a_shard", qkv_call, qkv_reference, "the gathered x times wqkv's group (fp32)")
+    o_h = _seq_shard(ctx, 942, (1, w * SP_RING_TOKENS, hq, d), 2, bf)  # this rank's head group, whole sequence
+
+    def o_reference():
+        o_all = mesh.all_gather(ctx, o_h, dim=2)[:, me * SP_RING_TOKENS:(me + 1) * SP_RING_TOKENS]
+        return matmul_f32(o_all.reshape(SP_RING_TOKENS, hq * d), wo).to(bf)[None]
+
+    run("ulysses_o_a2a_gemm_shard", lambda: ksp.ulysses_o_a2a_gemm_shard(ctx, o_h, wo), o_reference,
+        "the gathered heads of this rank's rows times wo (fp32)")
+
+    # Row 27 as a kernel entry.
+    q, k, v = ag_in
+    got = ag_attn_kernel(ctx, q, k, v, causal=True, return_residuals=True)
+    want = ag_attention_reference(ctx, q, k, v, causal=True, return_residuals=True)
+    torch.cuda.synchronize()
+    err = close(got[0], want[0], BF16_ATOL, BF16_RTOL)
+    lse_err = close(got[1][0], want[1][0], LSE_ATOL, 0.0)
+    if not (torch.equal(got[1][1], want[1][1]) and torch.equal(got[1][2], want[1][2])):
+        raise AssertionError("ag_attn_kernel: k_full, v_full differ from the plain all-gather")
+    rlog(ctx, f"ag_attn_kernel S_local {SP_AG_TOKENS} (Hq {hq}, Hkv {hkv}, D {d}, causal, residuals): max|err| o "
+         f"{err:.3e}, lse {lse_err:.3e}; k_full, v_full bitwise equal to the plain all-gather")
+    keys = torch.arange(w * SP_AG_TOKENS, device=ctx.device)
+    mask = keys[None, :] <= me * SP_AG_TOKENS + torch.arange(SP_AG_TOKENS, device=ctx.device)[:, None]
+
+    def library():
+        kv = []
+        for t in (k, v):
+            out = torch.empty((w, *t.shape[1:]), dtype=t.dtype, device=t.device)
+            dist.all_gather_into_tensor(out, t, group=nccl)
+            kv.append(out.transpose(0, 1).reshape(1, hkv, w * SP_AG_TOKENS, d))
+        return F.scaled_dot_product_attention(q, *kv, attn_mask=mask, enable_gqa=True)
+
+    entry = timed_entry(
+        ctx, flush_buf, "ag_attn_kernel", "triton_dist_tpu_torch/csrc/ag_attention.cu",
+        "triton_dist_tpu/kernels/ag_attention.py:48",
+        lambda: ag_attn_kernel(ctx, q, k, v, causal=True, return_residuals=True),
+        lambda: ag_attention_reference(ctx, q, k, v, causal=True, return_residuals=True),
+        library if nccl is not None else None, ag_attention_cost(q, k, w, me, return_residuals=True),
+        library_name="NCCL all_gather_into_tensor of K and V + SDPA")
+    entry["max_abs_err"] = err
+    ctx.check_status()
+    return {"ag_attn_kernel": entry}, total
+
+
+def _rank_main(rank: int, port: int, results, alone: str | None = None) -> None:
+    """One rank of phase 5, in its own process: 5a-5h, 5i, 5g, then the abort
+    tests (with ``alone``, "quant" or "sp": 5a-q or 5i alone). Any failure reaches the parent as an
     error and a nonzero exit."""
     import traceback
 
@@ -3249,9 +3547,13 @@ def _rank_main(rank: int, port: int, results, quant_only: bool = False) -> None:
         nccl = None if shared else dist.new_group(backend="nccl")  # the yardstick's; the port never uses it
         flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=ctx.device)
         steps = EP_STEPS_SHARED if shared else EP_STEPS_OWN
-        if quant_only:
-            entries = check_quant_collective_kernels(ctx, flush_buf, nccl)
-            results.put((rank, "ok", {"entries": entries, "quant_op_launches": quant_host_ops(ctx)}))
+        if alone is not None:
+            if alone == "quant":
+                entries = check_quant_collective_kernels(ctx, flush_buf, nccl)
+                results.put((rank, "ok", {"entries": entries, "quant_op_launches": quant_host_ops(ctx)}))
+            else:
+                entries, sp_launches = sp_world4(ctx, flush_buf, nccl)
+                results.put((rank, "ok", {"entries": entries, "sp_launches": sp_launches}))
             ctx.heap.close()
             dist.destroy_process_group()
             return
@@ -3299,6 +3601,12 @@ def _rank_main(rank: int, port: int, results, quant_only: bool = False) -> None:
         gc.collect()
         torch.cuda.empty_cache()  # 5h's model is gone before the training phase
         t0 = time.perf_counter()
+        flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=ctx.device)
+        sp_entries, sp_launches = sp_world4(ctx, flush_buf, nccl)
+        entries.update(sp_entries)
+        del flush_buf
+        rlog(ctx, f"5i (sequence-parallel attention at world 4): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         train_launches = train_world4(ctx)
         rlog(ctx, f"5g (training at world 4): {time.perf_counter() - t0:.1f} s")
         ctx.host_barrier()
@@ -3308,7 +3616,7 @@ def _rank_main(rank: int, port: int, results, quant_only: bool = False) -> None:
                                   "host_op_launches": host_op_launches, "quant_op_launches": quant_op_launches,
                                   "ep_launches": ep_launches,
                                   "tp_moe_launches": tp_moe_launches, "tp_moe_mega_launches": tp_moe_mega_launches,
-                                  "train_launches": train_launches}))
+                                  "sp_launches": sp_launches, "train_launches": train_launches}))
         ctx.heap.close()
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
@@ -3319,12 +3627,12 @@ def _rank_main(rank: int, port: int, results, quant_only: bool = False) -> None:
         os._exit(1)
 
 
-def run_world4(timeout_s: float, quant_only: bool = False) -> tuple[dict[str, dict], list[dict[str, int]]]:
+def run_world4(timeout_s: float, alone: str | None = None) -> tuple[dict[str, dict], list[dict[str, int]]]:
     """Phase 5: four rank processes, rank r on card ``r % device_count``
     (the kernels are built already). Returns rank 0's kernel entries (the
     max |error| over the ranks) and the launch counts of its runs (5c, 5c',
-    the host ops of 5a' and 5a-q, 5f, 5h on dist and on mega, 5g; with
-    ``quant_only``, 5a-q's alone). Raises if any rank fails or the phase
+    the host ops of 5a' and 5a-q, 5f, 5h on dist and on mega, 5i, 5g; with
+    ``alone``, 5a-q's or 5i's alone). Raises if any rank fails or the phase
     outlives ``timeout_s``."""
     import multiprocessing as mp
     import queue
@@ -3341,7 +3649,7 @@ def run_world4(timeout_s: float, quant_only: bool = False) -> tuple[dict[str, di
         port = sock.getsockname()[1]
     spawn = mp.get_context("spawn")
     results = spawn.Queue()
-    procs = [spawn.Process(target=_rank_main, args=(r, port, results, quant_only)) for r in range(WORLD)]
+    procs = [spawn.Process(target=_rank_main, args=(r, port, results, alone)) for r in range(WORLD)]
     for p in procs:
         p.start()
     got = {}
@@ -3369,9 +3677,9 @@ def run_world4(timeout_s: float, quant_only: bool = False) -> tuple[dict[str, di
                 p.kill()
                 p.join()
     keys = ("launches", "mega_launches", "host_op_launches", "quant_op_launches", "ep_launches", "tp_moe_launches",
-            "tp_moe_mega_launches", "train_launches")
-    if quant_only:
-        keys = ("quant_op_launches",)
+            "tp_moe_mega_launches", "sp_launches", "train_launches")
+    if alone is not None:
+        keys = ({"quant": "quant_op_launches", "sp": "sp_launches"}[alone],)
     for key in keys:
         if any(got[r][key] != got[0][key] for r in got):
             raise AssertionError(f"phase 5: the ranks' launch counts differ ({key})")
@@ -3490,12 +3798,13 @@ def main() -> int:
         log(f"  ptxas {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
             f"spill stores {spills} bytes in all")
 
-    if sys.argv[1:] == ["--quant-collectives"]:
-        # Phase 5a-q alone (rows 16q-19q and their entry points at world 4):
-        # the four-card measurement, which needs nothing else of the script.
-        entries, runs = run_world4(timeout_s=W4_TIMEOUT_S, quant_only=True)
-        print(json.dumps({"kernels": [dict(entries[name], launches=runs[0][name]) for name in QUANT_KERNELS]}),
-              flush=True)
+    alone = {"--quant-collectives": ("quant", QUANT_KERNELS), "--sequence-parallel": ("sp", SP_KERNELS)}
+    if len(sys.argv) == 2 and sys.argv[1] in alone:
+        # Phase 5a-q or 5i alone (at world 4): the four-card measurement,
+        # which needs nothing else of the script.
+        phase, names = alone[sys.argv[1]]
+        entries, runs = run_world4(timeout_s=W4_TIMEOUT_S, alone=phase)
+        print(json.dumps({"kernels": [dict(entries[name], launches=runs[0][name]) for name in names]}), flush=True)
         print(json.dumps({"ok": True, "device": device_report()}), flush=True)
         return 0
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
@@ -3564,7 +3873,7 @@ def main() -> int:
     kernels = []
     for name in ("flash_attention", *TRAIN_KERNELS, "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS,
                  "paged_flash_decode", "paged_flash_decode_quant", "fused_moe_block", *COLLECTIVE_KERNELS,
-                 *QUANT_KERNELS, *EP_KERNELS, *STANDALONE_KERNELS):
+                 *QUANT_KERNELS, *EP_KERNELS, *STANDALONE_KERNELS, *SP_KERNELS):
         e = dict(entries[name])
         e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",

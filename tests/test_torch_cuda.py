@@ -729,14 +729,18 @@ def cuda_ranks(tmp_path_factory):
 def test_collective_kernels_world4_vs_plain(cuda_ranks, dtype):
     """Rows 16-19 at the edges (one row, ragged shards, 65 rows, m = 3, a
     ragged K of 96) against their plain versions; rows 18 and 19 give the
-    same bits on every rank; each call counts one launch."""
+    same bits on every rank; row 27 (a ragged 40-row shard with GQA 2, and
+    B 2 with GQA 4; causal or not; with and without residuals) against
+    ``ag_attention_reference``, its gathered K and V bitwise; each call
+    counts one launch."""
     atol, rtol = TOL[dtype]
     got = cuda_ranks.ok("cuda_kernels", dict(dtype=str(dtype).split(".")[1], seed=5, atol=atol, rtol=rtol))
     for rank, res in enumerate(got):
         for case, (err, within, same) in res["cases"].items():
             assert within, f"rank {rank} {case}: max |err| {err}"
             assert same in (None, True), f"rank {rank} {case}: the ranks' outputs differ"
-        assert res["launches"] == {"ag_gemm_fused": 4, "gemm_rs_fused": 2, "gemm_ar_fused": 2, "gemm_ar_ll": 4}
+        assert res["launches"] == {"ag_gemm_fused": 4, "gemm_rs_fused": 2, "gemm_ar_fused": 2, "gemm_ar_ll": 4,
+                                   "ag_attn_kernel": 8}
 
 
 @pytest.mark.parametrize("wire", ["int8", "fp8"])

@@ -479,9 +479,11 @@ def test_ring_attention_varlen_fn_world4(ranks, varlen_ref):
 
 
 def test_unported_functions_raise():
-    """What needs an unported kernel or a two-axis mesh raises and names it."""
-    with pytest.raises(NotImplementedError, match="row 27"):
-        fn.ag_attention_fn(None, None, None)
+    """What needs a two-axis mesh raises and names it (item D1).
+    ``ag_attention_fn`` (row 27) no longer raises: at world 1 it is rows 1
+    and 5 (``tests/test_torch_sp.py`` holds it at world 4)."""
+    q, kv = torch.zeros((1, 4, 8, 32)), torch.zeros((1, 2, 8, 32))
+    assert fn.ag_attention_fn(None, q, kv, kv).shape == q.shape
     for f in (fn.ring_attention_2d_fn, fn.ring_attention_2d_varlen_fn):
-        with pytest.raises(NotImplementedError, match="two-axis mesh"):
+        with pytest.raises(NotImplementedError, match="two-axis mesh.*D1"):
             f(None, None, None)

@@ -390,3 +390,47 @@ def test_quant_paged_engine_equals_jax(served, preset, wire, backend):
     assert got_len.tolist() == [len(_parity_prompt(i)) + r for i, r in zip(SLOTS, REMAINING)]
     plan = ModelBuilder(PRESETS[preset], paged=True).build_step_fn(PRESETS[preset].num_layers).plan
     assert eng._mega_paged_step.plan == plan
+
+
+def test_quant_streams_equal_unquantized_streams_on_the_pinned_family(served):
+    """The bar of JAX's ``tests/test_quant.py::test_serving_greedy_parity_quant_kv``,
+    held by the port: on JAX's pinned ``test-dense`` family (the six prompts
+    of ``PARITY_IDX``, 6 + 2·n tokens each; weights from JAX's ``PRNGKey(1)``
+    through ``params_from_numpy``), the greedy streams served through int8
+    and fp8 pools equal those through the unquantized pool, token for token.
+    The serving follows JAX's test: the ``xla`` engine on a paged pool of
+    16-row blocks (``TDT_KV_BLOCK_SIZE``), one prefill chunk a prompt
+    (``TDT_PREFILL_CHUNK`` = max_len 96), decode in chunks of 8 steps
+    (``TDT_SERVE_CHUNK``), so each request's rows are quantized at the same
+    points of its own timeline as under JAX's staggered server (slots do not
+    see each other's rows, so all six share one batch here)."""
+    _, tmodel, _ = served("test-dense")
+    max_len, bs, chunk = 96, 16, 8
+    gens = [6 + 2 * n for n in range(len(PARITY_IDX))]
+    prompts = [_parity_prompt(i) for i in PARITY_IDX]
+    chains = [-(-(len(p) + g) // bs) for p, g in zip(prompts, gens)]
+    num_blocks = 1 + sum(chains)
+    streams = {}
+    for wire in (None, *WIRES):
+        eng = Engine(tmodel, backend="xla", max_len=max_len)
+        paged = eng.alloc_paged(len(prompts), block_size=bs, num_blocks=num_blocks, quant=wire)
+        alloc = BlockAllocator(num_blocks)
+        tables = torch.zeros((len(prompts), paged.max_blocks), dtype=torch.int32)
+        first = []
+        for slot, (p, n) in enumerate(zip(prompts, chains)):
+            kb, vb = eng.paged_kbuf_zeros(len(p))
+            logits, kb, vb = eng.prefill_chunk(kb, vb, torch.tensor([p], dtype=torch.int32), 0, len(p) - 1)
+            first.append(int(torch.argmax(logits[0])))
+            tables[slot, :n] = torch.tensor(alloc.alloc(n), dtype=torch.int32)
+            paged = eng.complete_paged_prefill(paged, kb, vb, tables[slot], 0)
+        paged = _port_set_rows(paged, tables, torch.tensor([len(p) for p in prompts], dtype=torch.int32))
+        got = [[f] for f in first]
+        tokens, remaining = torch.tensor(first, dtype=torch.int32), torch.tensor([g - 1 for g in gens])
+        while bool((remaining > 0).any()):
+            out, tokens, paged, remaining = eng.decode_steps_paged(paged, tokens, remaining, chunk)
+            for slot, row in enumerate(out.tolist()):
+                got[slot] += [t for t in row if t >= 0]
+        assert [len(s) for s in got] == gens
+        streams[wire] = got
+    for wire in WIRES:
+        assert streams[wire] == streams[None], f"{wire}: {streams[wire]} != {streams[None]}"

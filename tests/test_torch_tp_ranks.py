@@ -1,5 +1,6 @@
 """One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``,
-``tests/test_torch_ep.py``, ``tests/test_torch_function.py``).
+``tests/test_torch_ep.py``, ``tests/test_torch_function.py``,
+``tests/test_torch_sp.py``).
 
 Run as ``python test_torch_tp_ranks.py RANK WORLD STORE [DEVICE]``: it joins a
 ``gloo`` group through the file store STORE, on the CPU (the plain
@@ -23,6 +24,7 @@ import sys
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch.kernels import ag_attention as aga
 from triton_dist_tpu_torch.kernels import allgather as cag
 from triton_dist_tpu_torch.kernels import allgather_gemm as ag
 from triton_dist_tpu_torch.kernels import allreduce as car
@@ -31,6 +33,8 @@ from triton_dist_tpu_torch.kernels import gemm_allreduce as ar
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
 from triton_dist_tpu_torch.kernels import low_latency_a2a as ll
 from triton_dist_tpu_torch.kernels import reduce_scatter as crs
+from triton_dist_tpu_torch.kernels import sp as ksp
+from triton_dist_tpu_torch.layers import sp as lsp
 from triton_dist_tpu_torch.layers.tp import TP_MoE
 from triton_dist_tpu_torch.models import (
     PRESETS,
@@ -192,7 +196,8 @@ def _same_on_every_rank(ctx, t) -> bool:
 
 def cuda_kernels(ctx, dtype, seed, atol, rtol):
     """Rows 16-19 at edge shapes on the card against their plain versions
-    (the plain collective plus the fp32 product) on the same inputs; every
+    (the plain collective plus the fp32 product), and row 27 against
+    ``ag_attention_reference``, on the same inputs; every
     rank draws every rank's inputs from ``seed``. Returns, per case, the
     max |error|, whether every element is within ``atol + rtol·|plain|``
     and, for rows 18 and 19, whether every rank got the same bits; and the
@@ -226,9 +231,29 @@ def cuda_kernels(ctx, dtype, seed, atol, rtol):
             a, b = randn(w, m, k)[me].contiguous(), randn(w, k, n, scale=(w * k) ** -0.5)[me].contiguous()
             got, want = fn(ctx, a, b), ar.gemm_ar_reference(ctx, a, b)
             out[f"{name} m={m}"] = (*check(got, want), _same_on_every_rank(ctx, got))
+    # Row 27 against its plain version: a ragged shard (GQA 2) and B 2 (GQA
+    # 4), causal or not, with and without residuals (k_full and v_full
+    # bitwise: they are copies).
+    ag_before = aga.ag_attn_kernel.launches
+    for b, hq, hkv, s_loc, d in ((1, 4, 2, 40, 128), (2, 8, 2, 64, 64)):
+        q = randn(w, b, hq, s_loc, d)[me].contiguous()
+        k, v = (randn(w, b, hkv, s_loc, d)[me].contiguous() for _ in range(2))
+        for causal in (True, False):
+            for res in (False, True):
+                got = aga.ag_attn_kernel(ctx, q, k, v, causal=causal, return_residuals=res)
+                want = aga.ag_attention_reference(ctx, q, k, v, causal=causal, return_residuals=res)
+                label = f"ag_attn b={b} hq={hq} hkv={hkv} s_loc={s_loc} d={d} causal={causal}"
+                if not res:
+                    out[label] = (*check(got, want), None)
+                    continue
+                out[label + " o"] = (*check(got[0], want[0]), None)
+                out[label + " lse"] = (*check(got[1][0], want[1][0]), None)
+                for name, x, y in (("k_full", got[1][1], want[1][1]), ("v_full", got[1][2], want[1][2])):
+                    out[f"{label} {name}"] = (0.0, torch.equal(x, y), None)
     ctx.check_status()
     launches = {f.__name__: f.launches - before[f.__name__]
                 for f in (ag.ag_gemm_fused, rs.gemm_rs_fused, ar.gemm_ar_fused, ar.gemm_ar_ll)}
+    launches["ag_attn_kernel"] = aga.ag_attn_kernel.launches - ag_before
     return {"cases": out, "launches": launches}
 
 
@@ -490,6 +515,8 @@ def function_grads(ctx, op, args, c, **kw):
         out = fn.ring_attention_fn(ctx, *leaves, **kw)
     elif op == "ring_varlen":
         out = fn.ring_attention_varlen_fn(ctx, *leaves, **kw)
+    elif op == "ag":
+        out = fn.ag_attention_fn(ctx, *leaves, **kw)
     else:
         raise ValueError(f"unknown op {op!r}")
     loss = (out * torch.from_numpy(c)).sum()
@@ -502,11 +529,54 @@ def function_grads(ctx, op, args, c, **kw):
     return {"out": _np(out), "grads": grads}
 
 
+def sp_op(ctx, op, **kw):
+    """One sequence-parallel function or layer of the port on this rank's
+    inputs (numpy), its results as numpy. ``agsp`` also returns which route
+    ``AGSPAttn`` called (row 27 or the ring), counted around the call."""
+    t = {k: _t(a) if isinstance(a, np.ndarray) else a for k, a in kw.items()}
+    if op == "ag":
+        o, (lse, k_full, v_full) = aga.ag_flash_attention_shard(ctx, t["q"], t["k"], t["v"], causal=t["causal"],
+                                                                return_residuals=True)
+        return {"o": _np(o), "lse": _np(lse), "k_full": _np(k_full), "v_full": _np(v_full)}
+    if op == "ring":
+        layer = lsp.RingSPAttn(ctx, causal=t["causal"])
+        return _np(layer(t["q"], t["k"], t["v"], cu_seqlens=kw.get("cu_seqlens")))
+    if op == "ulysses":
+        layer = lsp.UlyssesSPAttn(ctx, causal=t["causal"], use_pallas_a2a=t["use_pallas_a2a"])
+        return _np(layer(t["q"], t["k"], t["v"]))
+    if op == "agsp":
+        calls = {"ag": 0, "ring": 0}
+        routes = {"ag": "ag_flash_attention_shard", "ring": "ring_attention_shard"}
+        saved = {name: getattr(lsp, attr) for name, attr in routes.items()}
+
+        def counted(name):
+            def call(*a, **k):
+                calls[name] += 1
+                return saved[name](*a, **k)
+            return call
+
+        try:
+            for name, attr in routes.items():
+                setattr(lsp, attr, counted(name))
+            o = lsp.AGSPAttn(ctx, vmem_limit_mb=t["vmem_limit_mb"])(t["q"], t["k"], t["v"])
+        finally:
+            for name, attr in routes.items():
+                setattr(lsp, attr, saved[name])
+        return {"o": _np(o), "calls": calls}
+    if op == "ulysses_gemms":
+        q, k, v = ksp.ulysses_qkv_gemm_a2a_shard(ctx, t["x3"], t["wqkv"], num_q_heads=t["hq"],
+                                                 num_kv_heads=t["hkv"], head_dim=t["hd"])
+        return {"gemm_a2a": _np(ksp.gemm_a2a_shard(ctx, t["x"], t["w"])),
+                "a2a_gemm": _np(ksp.a2a_gemm_shard(ctx, t["chunks"], t["w2"])),
+                "qkv": [_np(q), _np(k), _np(v)], "o_proj": _np(ksp.ulysses_o_a2a_gemm_shard(ctx, t["o"], t["wo"]))}
+    raise ValueError(f"unknown op {op!r}")
+
+
 TASKS = {"collectives": collectives, "collective_ops": collective_ops, "tp_moe": tp_moe,
          "matmuls": matmuls, "serve": serve, "dist_prefill": dist_prefill, "cuda_collectives": cuda_collectives,
          "cuda_kernels": cuda_kernels, "stall": stall, "ep_op": ep_op, "ep_mlp": ep_mlp,
          "cuda_ep_kernels": cuda_ep_kernels, "function_grads": function_grads, "quant_matmuls": quant_matmuls,
-         "cuda_quant_kernels": cuda_quant_kernels}
+         "cuda_quant_kernels": cuda_quant_kernels, "sp_op": sp_op}
 
 
 def _read(stream):

@@ -1,5 +1,6 @@
-// Pieces shared by the flash attention forward (csrc/flash_attn.cu) and
-// backward (csrc/flash_attn_bwd.cu): the bf16 mma.sync m16n8k16 product,
+// Pieces shared by the flash attention forward (csrc/flash_sweep.cuh, for
+// csrc/flash_attn.cu and csrc/ag_attention.cu) and backward
+// (csrc/flash_attn_bwd.cu): the bf16 mma.sync m16n8k16 product,
 // bf16 packing, a tile load into padded shared memory, the causal tile count
 // and the attention mask of both kernels.
 //
@@ -73,15 +74,19 @@ __device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t 
 }
 
 // ROWS x D bf16 rows [row0, row0 + ROWS) of a (nrows, D) matrix into shared
-// memory with row stride D + 8; rows at or past nrows become zeros.
-template <int D, int ROWS>
+// memory with row stride D + 8; rows at or past nrows become zeros. `CG`
+// reads through L2 only (rows another rank wrote).
+template <int D, int ROWS, bool CG = false>
 __device__ __forceinline__ void load_tile_bf16(bf16* s, const bf16* g, int row0, int nrows) {
   constexpr int LD = D + 8;
   constexpr int CPR = D / 8;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < ROWS * CPR; c += ATTN_THREADS) {
     const int r = c / CPR, cc = c % CPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + cc * 8);
+    if (row0 + r < nrows) {
+      const uint4* src = reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + cc * 8);
+      val = CG ? __ldcg(src) : *src;
+    }
     *reinterpret_cast<uint4*>(s + r * LD + cc * 8) = val;
   }
 }

@@ -40,6 +40,7 @@ enum Phase : uint64_t {
   PHASE_A2A_RECV = 5,
   PHASE_EP_DISPATCH = 6,
   PHASE_EP_COMBINE = 7,
+  PHASE_AG_KV_RECV = 8,
 };
 
 // What a collective kernel needs of the layer; passed by value.

@@ -15,7 +15,9 @@ backward is the kernel or collective JAX's ``custom_vjp`` picks:
 * the attention functions: rows 1 and 4 forward, rows 5 and 6 backward
   from the saved LSE; ``ring_attention_fn`` and
   ``ring_attention_varlen_fn`` rotate KV with ``ppermute_fn``, whose
-  backward is the reverse rotation.
+  backward is the reverse rotation; ``ag_attention_fn`` runs row 27
+  forward and row 5 over the gathered KV backward, then a reduce-scatter
+  of dk and dv.
 
 The collective functions take the port's ``DistContext`` first (None or
 world 1: plain products), where JAX takes an axis name.
@@ -39,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from triton_dist_tpu_torch.kernels import sp
+from triton_dist_tpu_torch.kernels.ag_attention import ag_attention_supported, ag_flash_attention_shard
 from triton_dist_tpu_torch.kernels.allgather_gemm import AGGemmMethod, ag_gemm_shard
 from triton_dist_tpu_torch.kernels.ep_a2a import all_to_all_single_shard
 from triton_dist_tpu_torch.kernels.flash_attn import (
@@ -50,12 +53,9 @@ from triton_dist_tpu_torch.kernels.flash_attn import (
 from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar_shard
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs_shard
 from triton_dist_tpu_torch.kernels.group_gemm import bmm_f32, group_gemm_swiglu, matmul_f32
+from triton_dist_tpu_torch.kernels.sp import NEEDS_2D_MESH
 from triton_dist_tpu_torch.runtime import mesh
 
-NEEDS_ROW_27 = ("ag_attention_fn needs the fused all-gather + flash attention kernel (row 27, "
-                "ag_attention.py:48), not ported yet (ROADMAP queue 1 item C)")
-NEEDS_2D_MESH = ("the two-level (DCN x ICI) rings need a two-axis mesh; the port's DistContext is one "
-                 "ring of ranks (ROADMAP queue 1 item C)")
 
 
 def _world(ctx) -> int:
@@ -354,6 +354,64 @@ def ring_attention_2d_varlen_fn(*args, **kwargs):
     raise NotImplementedError(NEEDS_2D_MESH)
 
 
-def ag_attention_fn(*args, **kwargs):
-    """Fused AG-SP attention (JAX ``ag_attention_fn``): needs row 27; raises."""
-    raise NotImplementedError(NEEDS_ROW_27)
+# ------------------------------------------------------------ AG attention
+
+
+def _ag_attn_check(ctx, q, k, vmem_limit_mb):
+    """Raise where JAX's ``ag_attention_fn`` raises: the TPU plan with the
+    LSE residuals does not fit (world 1 takes row 1 and is never refused)."""
+    if _world(ctx) == 1:
+        return
+    b, hq, s_loc, d = q.shape
+    if not ag_attention_supported(ctx.world, b, hq, k.shape[1], s_loc, d, q.element_size(), vmem_limit_mb,
+                                  with_residuals=True):
+        raise ValueError("ag_attention_fn: the fused kernel's VMEM plan (with LSE residuals) does not fit this "
+                         "shape — use ring_attention_fn (O(S_local) residency) for long-context training")
+
+
+class _AGAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, ctx, q, k, v, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, (lse, k_full, v_full) = ag_flash_attention_shard(ctx, q, k, v, causal=True, scale=scale,
+                                                            return_residuals=True)
+        fctx.save_for_backward(q, k_full, v_full, o, lse)
+        fctx.dist, fctx.scale = ctx, scale
+        return o
+
+    @staticmethod
+    def backward(fctx, do):
+        ctx = fctx.dist
+        q, k_full, v_full, o, lse = fctx.saved_tensors
+        world = _world(ctx)
+        q_off = 0 if world == 1 else ctx.rank * q.shape[2]
+        dq, dk_full, dv_full = flash_attention_bwd(q, k_full, v_full, o, lse, do.contiguous(), causal=True,
+                                                   scale=fctx.scale, q_offset=q_off, kv_offset=0)
+        if world == 1:
+            return None, dq, dk_full, dv_full, None
+
+        def scatter(g):
+            # Shard j's gradient is the sum over the ranks of block j of
+            # theirs: summed in fp32, cast once (JAX's psum_scatter of the
+            # fp32 gradients); the sequence dimension goes first for the
+            # row split.
+            part = mesh.psum_scatter(ctx, g.float().permute(2, 0, 1, 3).contiguous())
+            return part.permute(1, 2, 0, 3).to(g.dtype).contiguous()
+
+        return None, dq, scatter(dk_full), scatter(dv_full), None
+
+
+def ag_attention_fn(ctx, q, k, v, *, scale: float | None = None, vmem_limit_mb: int = 100) -> torch.Tensor:
+    """Differentiable fused all-gather attention (causal): q (B, Hq, S_local,
+    D), k, v (B, Hkv, S_local, D) this rank's sequence shard. Forward: row 27
+    with its residuals (the LSE and the gathered K and V, which its landing
+    zones hold anyway), so the backward gathers nothing: row 5 over the
+    gathered K and V at this rank's global offset, then a reduce-scatter
+    (``mesh.psum_scatter``, in fp32, cast once) returns each KV shard's
+    gradient, summed over every rank's loss, to its owner. dq is complete on
+    this rank. Raises where JAX's does (``ag_attention_supported`` with the
+    residuals, at ``vmem_limit_mb``); at world 1 it is row 1 and row 5.
+    Memory: each rank keeps the whole gathered K and V until the backward;
+    ``ring_attention_fn`` keeps O(S_local)."""
+    _ag_attn_check(ctx, q, k, vmem_limit_mb)
+    return _AGAttention.apply(ctx, q, k, v, scale)

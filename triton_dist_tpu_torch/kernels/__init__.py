@@ -2,6 +2,7 @@
 version. Every wrapper counts its launches in ``<wrapper>.launches`` (a
 backward wrapper one per kernel it starts: two a call)."""
 
+from triton_dist_tpu_torch.kernels.ag_attention import ag_attention_reference, ag_attn_kernel
 from triton_dist_tpu_torch.kernels.allgather import all_gather_reference, full_mesh_ag_call, ring_ag_call
 from triton_dist_tpu_torch.kernels.allgather_gemm import (
     ag_gemm_fused,
@@ -89,6 +90,7 @@ KERNELS = {
     "full_mesh_ag_call": full_mesh_ag_call,
     "ring_rs_call": ring_rs_call,
     "one_shot_ar_call": one_shot_ar_call,
+    "ag_attn_kernel": ag_attn_kernel,
 }
 
 
@@ -103,6 +105,8 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNELS",
+    "ag_attention_reference",
+    "ag_attn_kernel",
     "ag_gemm_fused",
     "ag_gemm_fused_quant",
     "ag_gemm_quant_reference",

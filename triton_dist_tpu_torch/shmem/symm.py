@@ -53,7 +53,8 @@ ALIGN = 256
 WAIT_TIMEOUT_S = 30.0
 
 #: Phase ids of the status word, in the order of ``csrc/shmem.cuh``.
-PHASES = ("barrier", "ag_recv", "rs_recv", "ar_recv", "ar_bcast", "a2a_recv", "ep_dispatch", "ep_combine")
+PHASES = ("barrier", "ag_recv", "rs_recv", "ar_recv", "ar_bcast", "a2a_recv", "ep_dispatch", "ep_combine",
+          "ag_kv_recv")
 
 _SIGNATURES = {
     "tdt_heap_alloc": [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p],
