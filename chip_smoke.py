@@ -65,7 +65,18 @@ then, on the card:
    ``serve``) plus one ``dist_ar`` prefill, launch counts read
    around that run and held to the routers' prediction; (5c') the same
    model on mega (the four slots, 8 decode steps on a shared card and 32
-   with a card a rank; row 22 twice a layer); then, expert-parallel:
+   with a card a rank; row 22 twice a layer); (5j) the four ranks laid out
+   as pp 2 x tp 2 (``runtime.mesh.split_axes``: a tp and a pp heap each):
+   row 23 bitwise against ``ppermute`` at the prefill and decode handoffs,
+   timed beside its bound and, with a card a rank, NCCL's
+   ``batch_isend_irecv``; ``test-dense`` (fp32) at pp 2 x tp 2 card vs CPU;
+   Qwen3-8B at full width and depth (18 layers a stage) on ``xla`` and
+   ``dist_ar`` (the 5c prompts into four slots, the decode steps of 5c, a
+   serve of 4 x (144 + 8)), tokens equal to the same model's tp-2 engine,
+   the counts of rows 23, 1 and 2 held to ``expected_pp_world4``; and the
+   abort test, a stage's rank away and its downstream rank ending in a
+   ``CollectiveAbort`` naming ``pp_recv`` and that rank; then,
+   expert-parallel:
    (5d) rows 25 (the all-to-all) and 26 (the fused dispatch, expert MLP
    and return) against their plain versions at the Qwen3-30B-A3B world-4
    shapes and at the edges, row 25 bitwise, row 26 bitwise equal on every
@@ -105,8 +116,9 @@ then, on the card:
 ``python3 chip_smoke.py --quant-collectives`` runs phase 5a-q alone (rows
 16q-19q against their plain versions, timed, and their entry points), and
 ``python3 chip_smoke.py --sequence-parallel`` phase 5i alone (the
-sequence-parallel layers and row 27, timed), each for the four-card
-measurement.
+sequence-parallel layers and row 27, timed), and ``python3 chip_smoke.py
+--pipeline`` phase 5j alone (row 23 and the pp 2 x tp 2 engine), each for
+the four-card measurement.
 
 It exits nonzero and prints no result when CUDA is unavailable, when run
 away from the repository, or when any phase fails.
@@ -225,6 +237,19 @@ TRAIN_KERNELS = ("flash_attention_varlen", "flash_attention_bwd", "flash_attenti
 QUANT_WIRES = ("fp8", "int8")
 QUANT_KERNELS = ("ag_gemm_fused_quant", "gemm_rs_fused_quant", "gemm_ar_fused_quant", "gemm_ar_ll_quant")
 QUANT_LOGIT_BAND = {"fp8": 0.5, "int8": 0.25}
+# Phase 5j: pipeline parallelism, pp 2 x tp 2 over the four ranks (global
+# rank r at pp r // 2, tp r % 2). Qwen3-8B at full width and depth (18
+# layers a stage, every rank its tp-2 shard of all 36) on xla and dist_ar:
+# the 5c prompts into four slots, EP_STEPS_SHARED / EP_STEPS_OWN decode steps
+# at B 4, and a serve of 4 rows of 144 + 8, whose prefill hands one row of
+# (144, 4096) bf16, 1.18 MB, from stage to stage; a decode step at B 4 hands
+# groups of 2 rows, 16 KiB. The abort test: global rank 1 (pp 0, tp 1)
+# stays away, and its downstream stage, rank 3, must end in a named abort.
+PP_AXES = (("pp", 2), ("tp", 2))
+PP_SERVE = (4, 144, 8)
+PP_ABSENT = 1
+#: The pipeline kernel (row 23).
+PP_KERNELS = ("p2p_kernel",)
 
 
 def log(msg: str) -> None:
@@ -308,7 +333,7 @@ _SHMEM_FAMILIES = (("ag_push", "ag_gemm_fused"), ("ag_gemm", "ag_gemm_fused"),
                    ("ep_combine", "fused_ep_kernel combine"), ("ring_ag_kernel", "ring_ag_call"),
                    ("fullmesh_ag_kernel", "full_mesh_ag_call"), ("ring_rs_kernel", "ring_rs_call"),
                    ("one_shot_ar_kernel", "one_shot_ar_call"), ("ag_kv_push", "ag_attn_kernel push"),
-                   ("ag_attn_", "ag_attn_kernel"))
+                   ("ag_attn_", "ag_attn_kernel"), ("p2p_kernel", "p2p_kernel"))
 
 
 def _family(kernel_name: str) -> str:
@@ -1468,7 +1493,7 @@ def expected_launches(cfg, backend: str, prefills: int, steps: int) -> dict[str,
         "fused_norm_head": steps if mega else 0,
         "fused_moe_block": layers * steps if mega and cfg.is_moe else 0,
         **{name: 0 for name in COLLECTIVE_KERNELS + EP_KERNELS + STANDALONE_KERNELS + QUANT_KERNELS},  # world 1
-        **{name: 0 for name in TRAIN_KERNELS + SP_KERNELS},  # serving runs no training kernel, no SP
+        **{name: 0 for name in TRAIN_KERNELS + SP_KERNELS + PP_KERNELS},  # no training kernel, no SP, no PP
     }
 
 
@@ -3524,10 +3549,278 @@ def sp_world4(ctx, flush_buf, nccl) -> tuple[dict[str, dict], dict[str, int]]:
     return {"ag_attn_kernel": entry}, total
 
 
+def expected_pp_world4(cfg, stages: int, slot_prompts: int, serve_rows: int, steps: int) -> dict[str, int]:
+    """Launches of rows 23, 1 and 2 a rank on 5j's run: ``slot_prompts``
+    ``prefill_into_slot`` calls, ``steps`` decode steps at B 4 (``decode_steps``
+    and the serve's) and one ``serve_rows``-row prefill. JAX's schedule fixes
+    them: a prefill of M microbatches (rows) runs M + S - 1 ticks and sends
+    after all but the last, every tick running the stage (masked ticks on
+    zeros); a decode step at B 4 runs G = B / S groups over G + S - 1 ticks,
+    the stage only where a group is active."""
+    per = cfg.num_layers // stages
+    groups = 4 // stages
+    return {"p2p_kernel": slot_prompts * (1 + stages - 2) + (serve_rows + stages - 2) + steps * (groups + stages - 2),
+            "flash_attention": per * (slot_prompts * stages + serve_rows + stages - 1),
+            "flash_decode": per * groups * steps}
+
+
+def check_pp_kernel(mesh2, flush_buf, nccl) -> dict[str, dict]:
+    """5j: row 23 on the ``pp`` axis of the 2 x 2 layout, bitwise against
+    its plain version (``mesh.ppermute``) at the served handoffs (a prefill
+    row of (144, 4096) bf16 and a decode group of (2, 4096) bf16) for
+    offsets +1 and -1, each timed at +1 beside its plain version, its bound
+    (the bytes over NVLink) and, with a card a rank, NCCL's
+    ``batch_isend_irecv`` in the yardstick group. Returns the entry of the
+    prefill handoff."""
+    import torch
+    import torch.distributed as dist
+
+    from triton_dist_tpu_torch.kernels.p2p import p2p_cost, p2p_kernel, p2p_reference
+
+    pp, dev = mesh2.axis("pp"), mesh2.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)  # the same draws on every rank
+    entry = None
+    for label, rows in (("prefill row", PP_SERVE[1]), ("decode group", 4 // pp.world)):
+        x = torch.randn((mesh2.world, rows, 4096), generator=gen, device=dev).to(torch.bfloat16)[mesh2.rank]
+        x = x.contiguous()
+        for offset in (1, -1):
+            got, want = p2p_kernel(pp, x, offset), p2p_reference(pp, x, offset)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+                raise AssertionError(f"p2p_kernel {label} offset {offset}: the kernel's bits differ from ppermute's")
+        rlog(mesh2, f"p2p_kernel {label} ({rows}, 4096) bf16: bitwise equal to ppermute at offsets +1 and -1")
+        nbytes = x.numel() * x.element_size()
+        library = None
+        if nccl is not None:
+            buf = torch.empty_like(x)
+            dst, src = (pp.heap.global_ranks[(pp.rank + o) % pp.world] for o in (1, -1))
+
+            def library(x=x, buf=buf, dst=dst, src=src):
+                ops = [dist.P2POp(dist.isend, x, dst, group=nccl), dist.P2POp(dist.irecv, buf, src, group=nccl)]
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+
+        kernel_ms = time_collective(pp, lambda x=x: p2p_kernel(pp, x, 1), flush_buf)
+        plain_ms = time_collective(pp, lambda x=x: p2p_reference(pp, x, 1), flush_buf, iters=5)
+        lib_ms = time_collective(pp, library, flush_buf) if library is not None else None
+        cost = p2p_cost(nbytes)
+        b_ms, b_by = bound3_ms(*cost)
+        rlog(mesh2, f"p2p_kernel {label} ({rows}, 4096) bf16 timed: kernel_ms {kernel_ms}, plain_ms {plain_ms}, "
+             f"library_ms(NCCL batch_isend_irecv) {lib_ms}, bound_ms {b_ms} ({b_by}; {cost[1]} HBM bytes, "
+             f"{cost[2]} NVLink bytes)")
+        if entry is None:  # the prefill handoff's; bitwise, so no error
+            entry = dict(name="p2p_kernel", route="cuda", source="triton_dist_tpu_torch/csrc/p2p.cu",
+                         replaces="triton_dist_tpu/kernels/p2p.py:26", ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, max_abs_err=0.0)
+    pp.check_status()
+    return {"p2p_kernel": entry}
+
+
+def pp_parity_fp32(mesh2) -> None:
+    """5j small: ``test-dense`` (fp32) at pp 2 x tp 2 on the card and on the
+    CPU (the plain versions over gloo) inside the same ranks, on ``xla``
+    and ``dist_ar``: a serve of 4 rows and four slots decoded together,
+    tokens equal, first logits close; row 23 launched on the card."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine, init_params, params_from_numpy
+
+    cfg = PRESETS["test-dense"]
+    full = init_params(cfg, torch.Generator().manual_seed(SEED + 19), "cpu")
+    arrays = {k: None if t is None else t.numpy() for k, t in vars(full).items()}
+    cpu2 = mesh2.on_cpu()
+    m_gpu = DenseLLM(cfg, params_from_numpy(arrays, cfg, ctx=mesh2), ctx=mesh2)
+    m_cpu = DenseLLM(cfg, params_from_numpy(arrays, cfg, ctx=cpu2), ctx=cpu2)
+    ids = torch.randint(0, cfg.vocab_size, (4, 24), generator=torch.Generator().manual_seed(SEED + 20))
+    reset_launch_counts()
+    errs, tokens = [], 0
+    for backend in ("xla", "dist_ar"):
+        e_gpu, e_cpu = Engine(m_gpu, backend=backend, max_len=64), Engine(m_cpu, backend=backend, max_len=64)
+        errs.append(close(e_gpu._full(e_gpu._prefill(ids)[0]).cpu(), e_cpu._full(e_cpu._prefill(ids)[0]),
+                          FP32_LOGITS_TOL, FP32_LOGITS_TOL))
+        outs = []
+        for e in (e_gpu, e_cpu):
+            served = e.serve(ids, gen_len=8)
+            cache = e.alloc_slots(4)
+            first = [e.prefill_into_slot(cache, slot, ids[slot:slot + 1, :n])[0] for slot, n in enumerate((24, 9, 17, 5))]
+            out = e.decode_steps(cache, torch.stack(first), torch.tensor([6, 3, 5, 0], dtype=torch.int32), 6)[0]
+            outs.append((served.cpu(), out.cpu()))
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"pp 2 x tp 2 {backend}: CUDA and CPU tokens differ:\ncuda {outs[0]}\ncpu  {outs[1]}")
+        tokens += sum(t.numel() for t in outs[0])
+    mesh2.check_status()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if not counts.get("p2p_kernel"):
+        raise AssertionError(f"pp 2 x tp 2 fp32 parity did not launch p2p_kernel: {counts}")
+    rlog(mesh2, f"5j parity fp32 pp 2 x tp 2 (test-dense; xla, dist_ar): first logits max|err| {max(errs):.3e} "
+         f"(tol {FP32_LOGITS_TOL}); {tokens} tokens equal CUDA vs CPU; launches {counts}")
+
+
+def serve_pp_world4(mesh2, steps: int) -> dict[str, int]:
+    """5j: Qwen3-8B at full width and depth (bf16, random weights from one
+    seed; every rank its tp-2 shard of all 36 layers, stage s running layers
+    18 s .. 18 s + 17) through ``Engine`` at pp 2 x tp 2 on ``xla`` and
+    ``dist_ar``: the 5c prompts into four slots, ``steps`` decode steps at B
+    4 and a serve of ``PP_SERVE``, launch counts read around each run and
+    held to ``expected_pp_world4``; then the same model's tp-2 engine
+    (``ctx.axis("tp")``, the same parameters) on the same requests, whose
+    tokens must be the pipeline's. Returns the two runs' counts, added."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import KERNELS, launch_counts, reset_launch_counts
+    from triton_dist_tpu_torch.models import PRESETS, DenseLLM, Engine
+
+    cfg = PRESETS["qwen3-8b"]
+    dev = mesh2.device
+    t0 = time.perf_counter()
+    model = DenseLLM(cfg, ctx=mesh2, generator=torch.Generator(device=dev).manual_seed(SEED))
+    tp_model = DenseLLM(cfg, model.params, ctx=mesh2.axis("tp"))
+    torch.cuda.synchronize()
+    mesh2.host_barrier()
+    n_params = sum(t.numel() for t in vars(model.params).values() if t is not None)
+    rlog(mesh2, f"qwen3-8b pp 2 x tp 2: stage {model.pp_ctx.rank} of {model.pp_world} runs "
+         f"{cfg.num_layers // model.pp_world} of {cfg.num_layers} layers; {n_params / 1e9:.2f} B parameters on this "
+         f"rank (its tp shard of every layer), built in {time.perf_counter() - t0:.1f} s")
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def prompt(n, rows=1):
+        return torch.randint(0, cfg.vocab_size, (rows, n), generator=tgen, device=dev)
+
+    prompts = [prompt(n) for n in W4_PROMPTS]
+    serve_rows, serve_prompt, serve_gen = PP_SERVE
+    serve_ids = prompt(serve_prompt, rows=serve_rows)
+    want = expected_pp_world4(cfg, model.pp_world, len(prompts), serve_rows, steps + serve_gen - 1)
+    total = {name: 0 for name in KERNELS}
+    for backend in ("xla", "dist_ar"):
+        streams = {}
+        for label, m in (("pp 2 x tp 2", model), ("tp 2", tp_model)):
+            engine = Engine(m, backend=backend, max_len=MAX_LEN)
+            warm = engine.alloc_slots(4)
+            tok, warm = engine.prefill_into_slot(warm, 0, prompt(16))
+            engine.decode_steps(warm, torch.stack([tok] * 4), torch.tensor([1, 0, 0, 0]), 1)
+            del warm
+            cache = engine.alloc_slots(len(prompts))
+            torch.cuda.synchronize()
+            mesh2.host_barrier()
+            reset_launch_counts()
+            ttft, tokens0 = [], []
+            for slot, ids in enumerate(prompts):
+                t0 = time.perf_counter()
+                tok, cache = engine.prefill_into_slot(cache, slot, ids)
+                tokens0.append(int(tok))
+                ttft.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, last, cache, rem = engine.decode_steps(
+                cache, torch.tensor(tokens0, dtype=torch.int32), torch.full((4,), steps), steps)
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+            t0 = time.perf_counter()
+            served = engine.serve(serve_ids, gen_len=serve_gen)
+            torch.cuda.synchronize()
+            serve_ms = (time.perf_counter() - t0) * 1e3
+            launches = launch_counts()
+            streams[label] = (tokens0, out.cpu(), served.cpu())
+            rlog(mesh2, f"qwen3-8b {label} [{backend}] TTFT " + ", ".join(
+                f"prompt {n}: {t:.2f} ms" for n, t in zip(W4_PROMPTS, ttft))
+                 + f"; decode_steps B=4, {steps} steps: {decode_ms:.2f} ms/step ({4 * 1e3 / decode_ms:.1f} tokens/s); "
+                 f"serve B={serve_rows} {serve_prompt}+{serve_gen}: {serve_ms:.1f} ms; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }")
+            if m is not model:
+                continue
+            got = {k: launches[k] for k in want}
+            if got != want:
+                raise AssertionError(f"pp 2 x tp 2 [{backend}]: launches {got}, expected {want}")
+            for name in KERNELS:
+                total[name] += launches[name]
+            if not bool(torch.isfinite(engine._decode(last, cache, cache.lengths)).all()):
+                raise AssertionError(f"pp 2 x tp 2 [{backend}]: non-finite logits")
+            want_len = [n + steps for n in W4_PROMPTS]
+            if cache.lengths.tolist() != want_len or rem.tolist() != [0] * 4 or cache.k.shape[0] != 18:
+                raise AssertionError(f"pp 2 x tp 2 [{backend}]: slot lengths {cache.lengths.tolist()} != {want_len} "
+                                     f"or a cache of {cache.k.shape[0]} layers")
+            if not _same_on_every_rank(mesh2, torch.cat([out.flatten(), served.flatten()])):
+                raise AssertionError(f"pp 2 x tp 2 [{backend}]: the ranks sampled different tokens")
+        (t_pp, o_pp, s_pp), (t_tp, o_tp, s_tp) = streams["pp 2 x tp 2"], streams["tp 2"]
+        if t_pp != t_tp or not torch.equal(o_pp, o_tp) or not torch.equal(s_pp, s_tp):
+            raise AssertionError(f"pp 2 x tp 2 [{backend}]: the stream differs from the tp-2 engine's:\n"
+                                 f"pp {t_pp} {o_pp.tolist()} {s_pp.tolist()}\ntp {t_tp} {o_tp.tolist()} {s_tp.tolist()}")
+        rlog(mesh2, f"qwen3-8b pp 2 x tp 2 [{backend}]: {len(t_pp) + o_pp.numel() + s_pp.numel()} tokens equal to the "
+             f"tp-2 engine's; launches {want} as predicted")
+    mesh2.check_status()
+    del model, tp_model
+    return total
+
+
+def abort_pp(mesh2) -> None:
+    """5j's abort test: every rank but ``PP_ABSENT`` (pp 0, tp 1) calls row
+    23 on its ``pp`` axis with its waits bounded by 2 s. The absent rank's
+    downstream stage (global rank 3) must end in a ``CollectiveAbort``
+    naming ``pp_recv`` and the absent rank; the other pair completes."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels.p2p import p2p_kernel
+    from triton_dist_tpu_torch.shmem.symm import CollectiveAbort
+
+    pp = mesh2.axis("pp")
+    pp.heap.timeout_ns = int(2e9)
+    if mesh2.rank == PP_ABSENT:
+        rlog(mesh2, "5j abort test: this rank (pp 0, tp 1) stays away")
+        return
+    t0 = time.perf_counter()
+    p2p_kernel(pp, torch.ones((2, 4096), dtype=torch.bfloat16, device=mesh2.device), 1)
+    try:
+        pp.check_status()
+    except CollectiveAbort as e:
+        msg = str(e)
+    else:
+        msg = None
+    waits_on_absent = pp.heap.global_ranks[(pp.rank - 1) % pp.world] == PP_ABSENT
+    if not waits_on_absent:
+        if msg is not None:
+            raise AssertionError(f"5j abort test: the pair without the absent rank aborted: {msg}")
+        rlog(mesh2, "5j abort test: this pair's handoff completed")
+        return
+    if msg is None or "'pp_recv'" not in msg or f"global rank {PP_ABSENT})" not in msg:
+        raise AssertionError(f"5j abort test: expected an abort naming 'pp_recv' and global rank {PP_ABSENT}: {msg}")
+    rlog(mesh2, f"5j abort test: {msg} ({time.perf_counter() - t0:.2f} s)")
+
+
+def pp_world4(ctx, flush_buf, nccl, steps: int) -> tuple[dict[str, dict], dict[str, int]]:
+    """5j: pipeline parallelism over the four ranks laid out as pp 2 x tp 2
+    (``split_axes``: a tp and a pp heap beside the world's): row 23 against
+    its plain version, timed; the fp32 ``test-dense`` parity; Qwen3-8B
+    served at full width and depth on xla and dist_ar against its tp-2
+    engine; the abort test. The axis heaps are freed at the end."""
+    import torch
+
+    from triton_dist_tpu_torch.runtime import mesh
+
+    mesh2 = mesh.split_axes(ctx, tuple(n for n, _ in PP_AXES), tuple(k for _, k in PP_AXES))
+    try:
+        rlog(mesh2, f"5j layout: pp rank {mesh2.axis('pp').rank}, tp rank {mesh2.axis('tp').rank}; pp group "
+             f"{mesh2.axis('pp').heap.global_ranks}, tp group {mesh2.axis('tp').heap.global_ranks}")
+        entries = check_pp_kernel(mesh2, flush_buf, nccl)
+        pp_parity_fp32(mesh2)
+        launches = serve_pp_world4(mesh2, steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh2.host_barrier()
+        abort_pp(mesh2)
+    finally:
+        torch.cuda.synchronize()
+        mesh2.host_barrier()
+        for name, _ in PP_AXES:
+            mesh.close(mesh2.axis(name))
+    return entries, launches
+
+
 def _rank_main(rank: int, port: int, results, alone: str | None = None) -> None:
-    """One rank of phase 5, in its own process: 5a-5h, 5i, 5g, then the abort
-    tests (with ``alone``, "quant" or "sp": 5a-q or 5i alone). Any failure reaches the parent as an
-    error and a nonzero exit."""
+    """One rank of phase 5, in its own process: 5a-5c', 5j, 5d-5h, 5i, 5g,
+    then the abort tests (with ``alone``, "quant", "sp" or "pp": 5a-q, 5i or
+    5j alone). Any failure reaches the parent as an error and a nonzero
+    exit."""
     import traceback
 
     try:
@@ -3551,6 +3844,9 @@ def _rank_main(rank: int, port: int, results, alone: str | None = None) -> None:
             if alone == "quant":
                 entries = check_quant_collective_kernels(ctx, flush_buf, nccl)
                 results.put((rank, "ok", {"entries": entries, "quant_op_launches": quant_host_ops(ctx)}))
+            elif alone == "pp":
+                entries, pp_launches = pp_world4(ctx, flush_buf, nccl, steps)
+                results.put((rank, "ok", {"entries": entries, "pp_launches": pp_launches}))
             else:
                 entries, sp_launches = sp_world4(ctx, flush_buf, nccl)
                 results.put((rank, "ok", {"entries": entries, "sp_launches": sp_launches}))
@@ -3579,9 +3875,15 @@ def _rank_main(rank: int, port: int, results, alone: str | None = None) -> None:
         launches, mega_launches = serve_world4(ctx, steps)
         rlog(ctx, f"5c, 5c' (qwen3-8b world 4, dist and mega): {time.perf_counter() - t0:.1f} s")
         gc.collect()
-        torch.cuda.empty_cache()  # 5c's model is gone before the EP phase loads
+        torch.cuda.empty_cache()  # 5c's model is gone before 5j loads
         t0 = time.perf_counter()
         flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=ctx.device)
+        pp_entries, pp_launches = pp_world4(ctx, flush_buf, nccl, steps)
+        entries.update(pp_entries)
+        gc.collect()
+        torch.cuda.empty_cache()  # 5j's model is gone before the EP phase loads
+        rlog(ctx, f"5j (pipeline parallelism, pp 2 x tp 2): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         entries.update(check_ep_kernels(ctx, flush_buf, nccl))
         del flush_buf
         gc.collect()
@@ -3616,7 +3918,8 @@ def _rank_main(rank: int, port: int, results, alone: str | None = None) -> None:
                                   "host_op_launches": host_op_launches, "quant_op_launches": quant_op_launches,
                                   "ep_launches": ep_launches,
                                   "tp_moe_launches": tp_moe_launches, "tp_moe_mega_launches": tp_moe_mega_launches,
-                                  "sp_launches": sp_launches, "train_launches": train_launches}))
+                                  "sp_launches": sp_launches, "train_launches": train_launches,
+                                  "pp_launches": pp_launches}))
         ctx.heap.close()
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
@@ -3631,9 +3934,9 @@ def run_world4(timeout_s: float, alone: str | None = None) -> tuple[dict[str, di
     """Phase 5: four rank processes, rank r on card ``r % device_count``
     (the kernels are built already). Returns rank 0's kernel entries (the
     max |error| over the ranks) and the launch counts of its runs (5c, 5c',
-    the host ops of 5a' and 5a-q, 5f, 5h on dist and on mega, 5i, 5g; with
-    ``alone``, 5a-q's or 5i's alone). Raises if any rank fails or the phase
-    outlives ``timeout_s``."""
+    the host ops of 5a' and 5a-q, 5f, 5h on dist and on mega, 5i, 5g, 5j;
+    with ``alone``, 5a-q's, 5i's or 5j's alone). Raises if any rank fails or
+    the phase outlives ``timeout_s``."""
     import multiprocessing as mp
     import queue
     import socket
@@ -3677,9 +3980,9 @@ def run_world4(timeout_s: float, alone: str | None = None) -> tuple[dict[str, di
                 p.kill()
                 p.join()
     keys = ("launches", "mega_launches", "host_op_launches", "quant_op_launches", "ep_launches", "tp_moe_launches",
-            "tp_moe_mega_launches", "sp_launches", "train_launches")
+            "tp_moe_mega_launches", "sp_launches", "train_launches", "pp_launches")
     if alone is not None:
-        keys = ({"quant": "quant_op_launches", "sp": "sp_launches"}[alone],)
+        keys = ({"quant": "quant_op_launches", "sp": "sp_launches", "pp": "pp_launches"}[alone],)
     for key in keys:
         if any(got[r][key] != got[0][key] for r in got):
             raise AssertionError(f"phase 5: the ranks' launch counts differ ({key})")
@@ -3798,7 +4101,8 @@ def main() -> int:
         log(f"  ptxas {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
             f"spill stores {spills} bytes in all")
 
-    alone = {"--quant-collectives": ("quant", QUANT_KERNELS), "--sequence-parallel": ("sp", SP_KERNELS)}
+    alone = {"--quant-collectives": ("quant", QUANT_KERNELS), "--sequence-parallel": ("sp", SP_KERNELS),
+             "--pipeline": ("pp", PP_KERNELS)}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         # Phase 5a-q or 5i alone (at world 4): the four-card measurement,
         # which needs nothing else of the script.
@@ -3873,7 +4177,7 @@ def main() -> int:
     kernels = []
     for name in ("flash_attention", *TRAIN_KERNELS, "flash_decode", "group_gemm_swiglu", *MEGA_KERNELS,
                  "paged_flash_decode", "paged_flash_decode_quant", "fused_moe_block", *COLLECTIVE_KERNELS,
-                 *QUANT_KERNELS, *EP_KERNELS, *STANDALONE_KERNELS, *SP_KERNELS):
+                 *QUANT_KERNELS, *EP_KERNELS, *STANDALONE_KERNELS, *SP_KERNELS, *PP_KERNELS):
         e = dict(entries[name])
         e["launches"] = sum(run[name] for run in runs)
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -813,15 +813,19 @@ def test_stalled_peer_ends_the_ep_all_to_all_in_a_named_abort(cuda, tmp_path):
 def test_standalone_collectives_world4_vs_plain(cuda_ranks):
     """Rows 20 (ring and full mesh), 21 and 22 bitwise equal to their plain
     versions at the edges (one row, a ragged lead, 12 bytes, bf16, a message
-    over one workspace); row 22 the same bits on every rank; each call
-    counts one launch."""
+    over one workspace); row 22 the same bits on every rank; row 23 bitwise
+    equal to ``ppermute`` at Qwen3-8B's prefill and decode handoffs for
+    offsets +1 and -1 over the ``pp`` axis of a 2 x 2 layout and over all
+    four ranks and over one workspace, its autograd backward the shift by
+    -offset, and its wrapper refusing empty and strided tensors; each call
+    counts one launch, row 23 one a workspace half."""
     got = cuda_ranks.ok("cuda_collectives", dict(seed=9))
     for rank, res in enumerate(got):
         for case, (equal, same) in res["cases"].items():
             assert equal, f"rank {rank} {case}: the kernel's bits differ from the plain version's"
             assert same in (None, True), f"rank {rank} {case}: the ranks' outputs differ"
         assert res["launches"] == {"ring_ag_call": 6, "full_mesh_ag_call": 6, "ring_rs_call": 3,
-                                   "one_shot_ar_call": 6}
+                                   "one_shot_ar_call": 6, "p2p_kernel": 14}
 
 
 @pytest.mark.parametrize("op,phase", [("one_shot", "ar_recv"), ("ring_rs", "rs_recv")])

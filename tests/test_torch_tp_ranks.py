@@ -1,11 +1,13 @@
 """One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``,
 ``tests/test_torch_ep.py``, ``tests/test_torch_function.py``,
-``tests/test_torch_sp.py``).
+``tests/test_torch_sp.py``, ``tests/test_torch_pp.py``).
 
-Run as ``python test_torch_tp_ranks.py RANK WORLD STORE [DEVICE]``: it joins a
-``gloo`` group through the file store STORE, on the CPU (the plain
+Run as ``python test_torch_tp_ranks.py RANK WORLD STORE [DEVICE [AXES]]``: it
+joins a ``gloo`` group through the file store STORE, on the CPU (the plain
 versions; the default) or, with DEVICE ``cuda``, on card ``RANK %
-device_count`` (the kernels; ``tests/test_torch_cuda.py``), then serves
+device_count`` (the kernels; ``tests/test_torch_cuda.py``), its ranks laid
+out over the mesh axes AXES when given (``pp=2,tp=2``: a ``pp`` × ``tp``
+context, ``runtime.mesh.split_axes``), then serves
 requests read from stdin until it reads end of file. A request is a
 length-prefixed pickle of ``(task, kwargs)``; the answer, written to stdout
 the same way, is ``("ok", result)`` or ``("err", "Type: message")``. It
@@ -32,9 +34,12 @@ from triton_dist_tpu_torch.kernels import ep_a2a, ep_fused
 from triton_dist_tpu_torch.kernels import gemm_allreduce as ar
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
 from triton_dist_tpu_torch.kernels import low_latency_a2a as ll
+from triton_dist_tpu_torch.kernels import p2p
 from triton_dist_tpu_torch.kernels import reduce_scatter as crs
 from triton_dist_tpu_torch.kernels import sp as ksp
 from triton_dist_tpu_torch.layers import sp as lsp
+from triton_dist_tpu_torch.layers.pp import PPCommLayer
+from triton_dist_tpu_torch.layers.pp_schedule import gpipe_forward, gpipe_stage_params
 from triton_dist_tpu_torch.layers.tp import TP_MoE
 from triton_dist_tpu_torch.models import (
     PRESETS,
@@ -47,6 +52,7 @@ from triton_dist_tpu_torch.models import (
     quantize_tensor,
 )
 from triton_dist_tpu_torch.runtime import mesh
+from triton_dist_tpu_torch.shmem.symm import WS_BYTES
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -316,6 +322,7 @@ def cuda_collectives(ctx, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     fns = (cag.ring_ag_call, cag.full_mesh_ag_call, crs.ring_rs_call, car.one_shot_ar_call)
     before = {f.__name__: f.launches for f in fns}
+    before_p2p = p2p.p2p_kernel.launches
     out = {}
     for label, shape, dtype in (("one row fp32", (1, 64), torch.float32),
                                 ("ragged (6, 48) fp32", (6, 48), torch.float32),
@@ -333,8 +340,63 @@ def cuda_collectives(ctx, seed):
             torch.cuda.synchronize()
             same = _same_on_every_rank(ctx, got) if replicated else None
             out[f"{name} {label}"] = (torch.equal(got.view(torch.uint8), want.view(torch.uint8)), same)
+    out.update(_cuda_p2p(ctx, gen))
     ctx.check_status()
-    return {"cases": out, "launches": {f.__name__: f.launches - before[f.__name__] for f in fns}}
+    launches = {f.__name__: f.launches - before[f.__name__] for f in fns}
+    launches["p2p_kernel"] = p2p.p2p_kernel.launches - before_p2p
+    return {"cases": out, "launches": launches}
+
+
+def _cuda_p2p(ctx, gen) -> dict:
+    """Row 23 on the card: bitwise against ``mesh.ppermute`` at Qwen3-8B's
+    handoff shapes (a prefill row of 144 tokens, a decode group of 2 rows,
+    bf16) and at the edges, for offsets +1 and -1, over the ``pp`` axis of a
+    ``pp`` × ``tp`` = 2 × 2 layout and over all four ranks (where the
+    closing barrier stays); its autograd backward (the shift by -offset);
+    a message one workspace half and 4 bytes long (two launches); and what
+    the wrapper refuses. 14 launches a rank, 4 of them backward."""
+    dev, out = ctx.device, {}
+    mesh2 = mesh.split_axes(ctx, ("pp", "tp"), (2, 2))
+    try:
+        for axis_ctx, where in ((mesh2.axis("pp"), "pp of 2x2"), (ctx, "world 4")):
+            for label, shape, dtype in (("prefill (144, 4096) bf16", (144, 4096), torch.bfloat16),
+                                        ("decode (2, 4096) bf16", (2, 4096), torch.bfloat16)):
+                x = torch.randn((ctx.world, *shape), generator=gen, device=dev).to(dtype)[ctx.rank].contiguous()
+                for offset in (1, -1):
+                    got, want = p2p.p2p_kernel(axis_ctx, x, offset), p2p.p2p_reference(axis_ctx, x, offset)
+                    torch.cuda.synchronize()
+                    out[f"p2p {where} {label} offset {offset}"] = (torch.equal(got.view(torch.uint8),
+                                                                               want.view(torch.uint8)), None)
+        pp = mesh2.axis("pp")
+        for label, shape in (("odd bytes (3, 5) fp32", (3, 5)), ("autograd (6, 64) fp32", (6, 64))):
+            x = torch.randn((ctx.world, *shape), generator=gen, device=dev)[ctx.rank].contiguous().requires_grad_()
+            g = torch.randn((ctx.world, *shape), generator=gen, device=dev)[ctx.rank].contiguous()
+            y = p2p.p2p_put_shard(mesh2, x, "pp", 1)
+            y.backward(g)
+            torch.cuda.synchronize()
+            ok = torch.equal(y.detach(), p2p.p2p_reference(pp, x.detach(), 1))
+            ok = ok and torch.equal(x.grad, p2p.p2p_reference(pp, g, -1))
+            out[f"p2p {label} forward and backward"] = (ok, None)
+        # One workspace half and 4 bytes: two launches, the second of 4 bytes.
+        xs = torch.randn((pp.world, WS_BYTES // 4 + 1), generator=gen, device=dev)
+        got = p2p.p2p_kernel(pp, xs[pp.rank].contiguous(), 1)
+        torch.cuda.synchronize()
+        out["p2p over one workspace"] = (torch.equal(got, xs[(pp.rank - 1) % pp.world]), None)
+        del xs, got
+        refused = []
+        for bad in (torch.empty(0, device=dev), torch.zeros((64, 32), device=dev).t()):
+            try:
+                p2p.p2p_kernel(pp, bad, 1)
+            except ValueError:
+                refused.append(True)
+        out["p2p refuses empty and strided tensors"] = (refused == [True] * 2, None)
+        mesh2.axis("pp").check_status()
+    finally:
+        torch.cuda.synchronize()
+        ctx.host_barrier()
+        for name in mesh2.axis_names:
+            mesh.close(mesh2.axis(name))
+    return out
 
 
 def stall(ctx, absent, timeout_s, op="ll"):
@@ -572,11 +634,84 @@ def sp_op(ctx, op, **kw):
     raise ValueError(f"unknown op {op!r}")
 
 
+def _pipeline(pp, ws, x, act, unroll=True):
+    """The toy stack ``h = act(h @ w)`` over the layers ``ws`` (L, D, D)
+    through ``gpipe_forward`` on the pipeline context ``pp`` (each stage its
+    L/S layers), the last stage's output broadcast (an all-gather pick)."""
+    def stage(h):
+        for w in gpipe_stage_params(ws, ws.shape[0], ctx=pp):
+            h = act(h @ w)
+        return h
+
+    out = gpipe_forward(stage, x, ctx=pp, unroll=unroll)
+    return mesh.all_gather(pp.axis("pp"), out[None], 0)[-1], out
+
+
+def pp_gpipe(ctx, stages, ws, x, exact_ws, exact_x, grad_x=None):
+    """The toy GPipe stack of ``tests/test_pp.py`` on ``stages`` pipeline
+    stages (all four ranks: ``stages`` 4; the ``pp`` axis otherwise): tanh
+    with the unrolled and the uniform (``unroll=False``) bodies, the
+    identity activation on ``exact_ws`` (small integers, exact in fp32 in
+    any summation order), and, with ``grad_x``, the gradient of
+    sum(out²) over ``ws`` summed over the stages."""
+    pp = mesh.split_axes(ctx, ("pp",), (4,)) if stages == 4 else ctx
+    with torch.no_grad():
+        got = {"tanh": _np(_pipeline(pp, torch.from_numpy(ws), torch.from_numpy(x), torch.tanh)[0]),
+               "tanh_scan": _np(_pipeline(pp, torch.from_numpy(ws), torch.from_numpy(x), torch.tanh, False)[0]),
+               "exact": _np(_pipeline(pp, torch.from_numpy(exact_ws), torch.from_numpy(exact_x), lambda h: h)[0])}
+    if grad_x is not None:
+        w = torch.from_numpy(ws).requires_grad_()
+        _, out = _pipeline(pp, w, torch.from_numpy(grad_x), torch.tanh)
+        (out ** 2).sum().backward()
+        got["grad"] = _np(mesh.psum(pp.axis("pp"), w.grad))
+    return got
+
+
+def pp_comm(ctx, x):
+    """``PPCommLayer.send_next`` / ``send_prev`` on both backends and the host
+    op ``p2p_send_recv`` over the ``pp`` axis, and ``send_next`` over all
+    four ranks as one ``pp`` axis."""
+    t = torch.from_numpy(x)
+    out = {}
+    for backend in ("pallas", "xla"):
+        comm = PPCommLayer(ctx, "pp", backend)
+        out[f"next {backend}"], out[f"prev {backend}"] = _np(comm.send_next(t)), _np(comm.send_prev(t))
+    out["send_recv"] = _np(p2p.p2p_send_recv(ctx, t, offset=-1))
+    out["next pp4"] = _np(PPCommLayer(mesh.split_axes(ctx, ("pp",), (4,))).send_next(t))
+    return out
+
+
+def pp_serve(ctx, arrays, backend, ids, gen_len, prompts, remaining, chunk, max_len):
+    """``test-dense`` on the ``pp`` × ``tp`` context and, on the same
+    parameters, on its ``tp`` axis alone: each engine's prefill (the
+    pipeline's stage-local KV gathered over ``pp`` into layer order), its
+    ``serve`` and its slots (``prefill_into_slot`` + ``decode_steps``)."""
+    cfg = PRESETS["test-dense"]
+    params = params_from_numpy(arrays, cfg, ctx=ctx)
+    result = {}
+    for name, mctx in (("pp", ctx), ("tp", ctx.axis("tp"))):
+        engine = Engine(DenseLLM(cfg, params, ctx=mctx), backend=backend, max_len=max_len)
+        t = torch.tensor(ids)
+        logits, (ks, vs) = engine._prefill(t)
+        if name == "pp":
+            ks, vs = (mesh.all_gather(ctx.axis("pp"), c, 0) for c in (ks, vs))
+        cache = engine.alloc_slots(len(prompts))
+        first = [int(engine.prefill_into_slot(cache, slot, torch.tensor([p]))[0]) for slot, p in enumerate(prompts)]
+        out, _, cache, _ = engine.decode_steps(cache, torch.tensor(first, dtype=torch.int32),
+                                               torch.tensor(remaining), chunk)
+        result[name] = {"logits": _np(engine._full(logits)), "k": _np(ks), "v": _np(vs),
+                        "served": _np(engine.serve(t, gen_len=gen_len)), "first": first, "out": _np(out),
+                        "lengths": _np(cache.lengths), "pp_world": engine.pp_world,
+                        "cache_layers": int(cache.k.shape[0])}
+    return result
+
+
 TASKS = {"collectives": collectives, "collective_ops": collective_ops, "tp_moe": tp_moe,
          "matmuls": matmuls, "serve": serve, "dist_prefill": dist_prefill, "cuda_collectives": cuda_collectives,
          "cuda_kernels": cuda_kernels, "stall": stall, "ep_op": ep_op, "ep_mlp": ep_mlp,
          "cuda_ep_kernels": cuda_ep_kernels, "function_grads": function_grads, "quant_matmuls": quant_matmuls,
-         "cuda_quant_kernels": cuda_quant_kernels, "sp_op": sp_op}
+         "cuda_quant_kernels": cuda_quant_kernels, "sp_op": sp_op, "pp_gpipe": pp_gpipe, "pp_comm": pp_comm,
+         "pp_serve": pp_serve}
 
 
 def _read(stream):
@@ -594,17 +729,19 @@ def _write(stream, obj) -> None:
 
 
 class Ranks:
-    """``world`` rank processes of this file over the file store ``store``;
+    """``world`` rank processes of this file over the file store ``store``,
+    laid out over ``axes`` (``(("pp", 2), ("tp", 2))``) when given;
     ``run(task, kwargs)`` (one dict for all, or one per rank) returns their
     answers in rank order, ``ok`` their results (asserting none failed)."""
 
-    def __init__(self, store, world: int = 4, device: str = "cpu"):
+    def __init__(self, store, world: int = 4, device: str = "cpu", axes=None):
         repo = pathlib.Path(__file__).resolve().parents[1]
         env = dict(os.environ, OMP_NUM_THREADS="1",
                    PYTHONPATH=os.pathsep.join([str(repo), os.environ.get("PYTHONPATH", "")]))
         self.world = world
         self.procs = [
-            subprocess.Popen([sys.executable, __file__, str(r), str(world), str(store), device],
+            subprocess.Popen([sys.executable, __file__, str(r), str(world), str(store), device]
+                             + ([",".join(f"{n}={k}" for n, k in axes)] if axes else []),
                              stdin=subprocess.PIPE, stdout=subprocess.PIPE, cwd=repo, env=env)
             for r in range(world)
         ]
@@ -637,10 +774,12 @@ class Ranks:
 def main() -> None:
     rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     device = sys.argv[4] if len(sys.argv) > 4 else "cpu"
+    axes = [a.split("=") for a in sys.argv[5].split(",")] if len(sys.argv) > 5 else [("tp", world)]
     torch.set_num_threads(1)
     pipe_in, pipe_out = sys.stdin.buffer, sys.stdout.buffer
     sys.stdout = sys.stderr  # nothing but answers on the pipe
-    ctx = mesh.initialize_distributed(rank, world, f"file://{store}", device=None if device == "cuda" else "cpu")
+    ctx = mesh.initialize_distributed(rank, world, f"file://{store}", device=None if device == "cuda" else "cpu",
+                                      axis_names=tuple(n for n, _ in axes), axis_sizes=tuple(int(k) for _, k in axes))
     while (req := _read(pipe_in)) is not None:
         task, kwargs = req
         try:

@@ -41,6 +41,7 @@ enum Phase : uint64_t {
   PHASE_EP_DISPATCH = 6,
   PHASE_EP_COMBINE = 7,
   PHASE_AG_KV_RECV = 8,
+  PHASE_PP_RECV = 9,
 };
 
 // What a collective kernel needs of the layer; passed by value.

@@ -58,6 +58,7 @@ from triton_dist_tpu_torch.kernels.mega_decode import (
     norm_head_reference,
 )
 from triton_dist_tpu_torch.kernels.mega_moe import fused_moe_block, moe_block_reference
+from triton_dist_tpu_torch.kernels.p2p import p2p_kernel, p2p_reference
 from triton_dist_tpu_torch.kernels.reduce_scatter import ring_rs_call, ring_rs_reference
 
 #: The kernel wrappers of the served paths, by name.
@@ -91,6 +92,7 @@ KERNELS = {
     "ring_rs_call": ring_rs_call,
     "one_shot_ar_call": one_shot_ar_call,
     "ag_attn_kernel": ag_attn_kernel,
+    "p2p_kernel": p2p_kernel,
 }
 
 
@@ -152,6 +154,8 @@ __all__ = [
     "mlp_block_reference",
     "moe_block_reference",
     "norm_head_reference",
+    "p2p_kernel",
+    "p2p_reference",
     "paged_decode_quant_reference",
     "paged_decode_reference",
     "paged_flash_decode",

@@ -169,9 +169,9 @@ def all_gather(ctx, x: torch.Tensor, method: AllGatherMethod = AllGatherMethod.A
 
 
 def all_gather_2d_shard(ctx, x: torch.Tensor, *, axes, method: AllGatherMethod = AllGatherMethod.AUTO):
-    """The hierarchical two-axis gather needs a two-axis mesh, which the
-    port does not have yet."""
-    raise NotImplementedError("all_gather_2d_shard needs a two-axis mesh (ROADMAP queue 1 item D)")
+    """The hierarchical gather over a two-axis mesh: not ported yet."""
+    raise NotImplementedError("all_gather_2d_shard over a two-axis mesh is not ported yet (ROADMAP queue 1, "
+                              "item D1's second half)")
 
 
 def all_gather_cost(shard_bytes: int, world: int) -> tuple[int, int, int]:

@@ -21,8 +21,8 @@ all-to-all, and the fused Ulysses GEMM↔all-to-all functions. Counterpart of
 
 Every function takes the port's ``DistContext`` first (None or world 1: one
 rank), where JAX takes an axis name. The two-level ring
-(``ring_attention_2d_shard``, ``ring_2d_schedule``) needs a two-axis mesh
-and raises.
+(``ring_attention_2d_shard``, ``ring_2d_schedule``) over a two-axis mesh
+is not ported yet and raises (D1's second half).
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ from triton_dist_tpu_torch.kernels.flash_attn import NEG_INF, flash_attention, f
 from triton_dist_tpu_torch.kernels.group_gemm import matmul_f32
 from triton_dist_tpu_torch.runtime import mesh
 
-NEEDS_2D_MESH = ("the two-level (DCN x ICI) rings need a two-axis mesh; the port's DistContext is one "
-                 "ring of ranks (ROADMAP queue 1 item D1)")
+NEEDS_2D_MESH = ("the two-level (DCN x ICI) rings over a two-axis mesh are not ported yet (ROADMAP queue 1, "
+                 "item D1's second half)")
 
 
 def _world_rank(ctx) -> tuple[int, int]:

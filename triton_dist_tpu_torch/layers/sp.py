@@ -1,6 +1,7 @@
 """Sequence-parallel attention layers: counterpart of
 ``triton_dist_tpu/layers/sp.py`` (``RingSPAttn``, ``UlyssesSPAttn``,
-``AGSPAttn``; ``Ring2DSPAttn`` needs a two-axis mesh and raises).
+``AGSPAttn``; ``Ring2DSPAttn``, over a two-axis mesh, is not ported yet and
+raises).
 
 Frozen dataclasses with JAX's fields and defaults, where the port's
 ``DistContext`` (``ctx``; None at world 1) takes the place of JAX's axis

@@ -19,6 +19,15 @@ every expert (``TP_MoE``); the expert-parallel MoE model is
 ``models.moe.EPMoELLM`` (its slabs by whole experts, ``EP_SHARD_DIM``). The
 mega step at world > 1 runs the builder over this rank's shard with the
 context's all-reduces (JAX ``_mega_builder``, ``dense.py:294-317``).
+
+A context with a ``pp`` axis (``runtime.mesh.split_axes``, JAX's ``pp`` ×
+``tp`` mesh) gives the model its tensor-parallel world from the ``tp`` axis
+(``ctx``, ``world``) and its pipeline stages from the ``pp`` axis
+(``pp_ctx``, ``pp_world``): every rank holds its ``tp`` shard of every
+layer, replicated over ``pp`` as JAX's ``p_specs`` place it, and the
+engine's pipeline programs (``disagg/pp_engine.py``) run each stage's slice
+of ``layers`` through ``prefill_layers`` / ``decode_layers``, the
+very layer loops of ``prefill`` and ``decode``.
 """
 
 from __future__ import annotations
@@ -137,6 +146,18 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     )
 
 
+def tp_pp_contexts(ctx):
+    """(tensor-parallel context, pipeline context) of a model's ``ctx``: a
+    context without a ``pp`` axis is all tensor-parallel; one with it gives
+    its ``tp`` axis (None when it has none) and its ``pp`` axis."""
+    names = getattr(ctx, "axis_names", None)
+    if ctx is None or names is None or "pp" not in names:
+        return ctx, None
+    if set(names) - {"pp", "tp"}:
+        raise ValueError(f"a model takes the mesh axes 'pp' and 'tp', not {names}")
+    return (ctx.axis("tp") if "tp" in names else None), ctx.axis("pp")
+
+
 def _replicated(mode: str) -> str:
     """The MLP mode of a replicated (decode-regime) call."""
     return "xla" if mode == "xla" else "dist_ar"
@@ -157,8 +178,9 @@ class DenseLLM:
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None, ctx=None):
         self.config = config
-        self.ctx = ctx
-        self.world = 1 if ctx is None else ctx.world
+        self.ctx, self.pp_ctx = tp_pp_contexts(ctx)
+        self.world = 1 if self.ctx is None else self.ctx.world
+        self.pp_world = 1 if self.pp_ctx is None else self.pp_ctx.world
         if ctx is not None and device is not None and torch.device(device).type != ctx.device.type:
             raise ValueError(f"device {device} differs from the context's {ctx.device}")
         self.device = ctx.device if ctx is not None else resolve_device(device)
@@ -169,7 +191,7 @@ class DenseLLM:
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
-            rank = 0 if ctx is None else ctx.rank
+            rank = 0 if self.ctx is None else self.ctx.rank
             params = init_params(config, generator, self.device, rank=rank, world=self.world,
                                  expert_parallel=self.expert_parallel)
         self.params = params
@@ -180,7 +202,7 @@ class DenseLLM:
                 p.wqkv[i], p.wo[i],
                 RMSNorm(p.q_norm[i], c.rms_eps), RMSNorm(p.k_norm[i], c.rms_eps),
                 num_q_heads=c.num_q_heads // self.world, num_kv_heads=c.num_kv_heads // self.world,
-                head_dim=c.head_dim, rope_theta=c.rope_theta, ctx=ctx,
+                head_dim=c.head_dim, rope_theta=c.rope_theta, ctx=self.ctx,
             )
             self.layers.append(
                 (RMSNorm(p.ln1[i], c.rms_eps), attn, RMSNorm(p.ln2[i], c.rms_eps), self._mlp(i))
@@ -222,18 +244,36 @@ class DenseLLM:
         shape = (c.num_layers, bsz, c.num_kv_heads // self.world, seq, c.head_dim)
         ks = torch.empty(shape, dtype=x.dtype, device=self.device)
         vs = torch.empty_like(ks)
-        for i, (ln1, attn, ln2, mlp) in enumerate(self.layers):
+        x = self.prefill_layers(x, pos, bsz, mode, self.layers, ks, vs)
+        x = self.final_norm(x)
+        if sharded:
+            x = all_gather(self.ctx, x, 0)
+        x = x.reshape(bsz, seq, -1)[:, -1]
+        return self._logits(x), (ks, vs)
+
+    @staticmethod
+    def prefill_layers(x, pos, bsz: int, mode: str, layers, ks, vs) -> torch.Tensor:
+        """``layers`` over x (bsz·S, d) at positions ``pos`` (bsz, S), each
+        layer's K and V written into ``ks[i]``, ``vs[i]`` (B, Hkv, S, D)."""
+        for i, (ln1, attn, ln2, mlp) in enumerate(layers):
             a, (k, v) = attn.prefill(ln1(x), pos, mode=mode, bsz=bsz)
             ks[i], vs[i] = k, v
             x = x + a
             # A MoE MLP takes "dist" (seq-sharded) or the replicated modes,
             # exactly the prefill modes (JAX dense.py:201-207).
             x = x + mlp(ln2(x), mode=mode)
-        x = self.final_norm(x)
-        if sharded:
-            x = all_gather(self.ctx, x, 0)
-        x = x.reshape(bsz, seq, -1)[:, -1]
-        return self._logits(x), (ks, vs)
+        return x
+
+    @staticmethod
+    def decode_layers(x, lengths, ks, vs, mode: str, layers) -> torch.Tensor:
+        """``layers`` over one token a row, x (B, d) at positions
+        ``lengths``; each layer writes its new K/V into ``ks[i]``, ``vs[i]``
+        (B, Hkv, T, D) in place."""
+        for i, (ln1, attn, ln2, mlp) in enumerate(layers):
+            a, _ = attn.decode(ln1(x), lengths, ks[i], vs[i], lengths, mode=mode)
+            x = x + a
+            x = x + mlp(ln2(x), mode=_replicated(mode))  # JAX dense.py:355-358
+        return x
 
     @torch.no_grad()
     def prefill_chunk(self, tokens, kbufs, vbufs, off: int, last_idx: int,
@@ -273,13 +313,8 @@ class DenseLLM:
         """``decode`` up to the head: the final-normed hidden states (B, d),
         replicated over the ranks (the same bits on every rank where the
         collectives reduce in rank order)."""
-        token = self._tokens(token)
-        x = self.params.embed[token]
-        for i, (ln1, attn, ln2, mlp) in enumerate(self.layers):
-            a, _ = attn.decode(ln1(x), lengths, ks[i], vs[i], lengths, mode=mode)
-            x = x + a
-            x = x + mlp(ln2(x), mode=_replicated(mode))  # JAX dense.py:355-358
-        return self.final_norm(x)
+        x = self.params.embed[self._tokens(token)]
+        return self.final_norm(self.decode_layers(x, lengths, ks, vs, mode, self.layers))
 
     # -- the mega backend ---------------------------------------------------
 

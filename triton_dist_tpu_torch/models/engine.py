@@ -33,6 +33,14 @@ on every backend, ``mega`` included (its step all-reduces over the ranks,
 JAX ``dense.py:294-317``); the paged entry points raise there. ``mega``
 raises for an ``EPMoELLM`` at any world (its MoE lowering waits for the
 mega builder's ``moe_impl`` hook).
+
+A model whose context has a ``pp`` axis of more than one stage
+(``pp_world``, JAX ``engine.py:314-338``) is served through the GPipe
+programs of ``disagg/pp_engine.py`` in place of its prefill and decode, on
+the ``xla`` and ``dist_ar`` backends (``dist`` and ``mega`` raise, with
+JAX's message). Its caches hold this stage's ``L / pp`` layers; ``serve``,
+``alloc_slots``, ``prefill_into_slot`` and ``decode_steps`` run through the
+programs, and the paged entry points raise (B3).
 """
 
 from __future__ import annotations
@@ -58,7 +66,8 @@ PREFIX_REUSE = ("prefix reuse (paged_seed_kbuf) comes with the serving scheduler
                 "ROADMAP queue 1 item A")
 SPECULATIVE = ("speculative decoding (the drafter, spec_decode_steps and its paged twin) is "
                "ROADMAP queue 1 item C")
-PAGED_WORLD_GT_1 = "the paged KV entry points at tensor-parallel world > 1 are ROADMAP queue 1 item B3"
+PAGED_WORLD_GT_1 = ("the paged KV entry points at world > 1 (tensor- or pipeline-parallel) are ROADMAP queue 1 "
+                    "item B3")
 
 
 def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
@@ -105,6 +114,18 @@ class Engine:
         self.chunk_mode = CHUNK_MODE[backend]
         self.kv_cache: KVCache | None = None
         self.world = model.world
+        # TP×PP: the GPipe programs replace the one-stage prefill and decode
+        # (JAX engine.py:314-338).
+        self.pp_world = model.pp_world
+        self._pp = None
+        if self.pp_world > 1:
+            if backend not in ("xla", "dist_ar"):
+                raise ValueError(
+                    f"pp>1 supports the xla/dist_ar backends, not {backend!r}: dist seq-shards prefill rows and "
+                    "mega pre-splits layer params — neither composes with stage-sliced layer blocks")
+            from triton_dist_tpu_torch.disagg.pp_engine import build_pp_programs
+
+            self._pp = build_pp_programs(self)
         if backend == "mega":
             # Built once: the step functions (contiguous and, at world 1 where
             # the paged entry points run, paged) and the per-layer weight views.
@@ -120,6 +141,8 @@ class Engine:
         token = sample_token(logits, generator, self.sample_method, self.temperature, self.top_p)
         if self.world > 1:
             self.model.ctx.check_status()
+        if self.pp_world > 1:
+            self.model.pp_ctx.check_status()
         return token
 
     def _full(self, logits):
@@ -127,10 +150,19 @@ class Engine:
         return all_gather(self.model.ctx, logits, 1) if self.world > 1 else logits
 
     def _check_paged_world(self) -> None:
-        if self.world > 1:
+        if self.world > 1 or self.pp_world > 1:
             raise NotImplementedError(PAGED_WORLD_GT_1)
 
+    def _prefill(self, ids):
+        """(logits (B, V / world), (ks, vs)) of a prompt batch: the model's
+        prefill, or the pipeline's (this stage's layers)."""
+        if self._pp is not None:
+            return self._pp[0](ids)
+        return self.model.prefill(ids, mode=self.prefill_mode)
+
     def _decode(self, token, cache: KVCache, lengths):
+        if self._pp is not None:
+            return self._full(self._pp[1](token, cache.k, cache.v, lengths))
         if self.decode_mode == "mega":
             logits, _, _ = self.model.decode_mega(self._mega_step, self._mega_layers, token,
                                                   cache.k, cache.v, lengths)
@@ -153,10 +185,11 @@ class Engine:
     # ------------------------------------------------- serving (slot-granular)
     def alloc_slots(self, num_slots: int) -> KVCache:
         """Zeroed KV for a fixed batch of ``num_slots`` serving slots, each
-        owning a full ``max_len`` row."""
+        owning a full ``max_len`` row (of this stage's layers on a pipeline
+        engine)."""
         c = self.model.config
         return KVCache.create(
-            c.num_layers, num_slots, c.num_kv_heads // self.world, self.max_len, c.head_dim,
+            c.num_layers // self.pp_world, num_slots, c.num_kv_heads // self.world, self.max_len, c.head_dim,
             dtype=self.model.params.embed.dtype, device=self.device,
         )
 
@@ -173,7 +206,7 @@ class Engine:
             raise ValueError("prefill_into_slot joins one request at a time")
         if seq > self.max_len:
             raise ValueError(f"prompt of {seq} tokens exceeds max_len={self.max_len}")
-        logits, (ks, vs) = self.model.prefill(ids, mode=self.prefill_mode)
+        logits, (ks, vs) = self._prefill(ids)
         logits = self._full(logits)
         cache.k[:, slot, :, :seq] = ks[:, 0]
         cache.k[:, slot, :, seq:] = 0
@@ -347,7 +380,7 @@ class Engine:
         bsz, seq = ids.shape
         if seq + gen_len > self.max_len:
             raise ValueError(f"{seq} + {gen_len} tokens exceed max_len={self.max_len}")
-        logits, (ks, vs) = self.model.prefill(ids, mode=self.prefill_mode)
+        logits, (ks, vs) = self._prefill(ids)
         logits = self._full(logits)
         cache = self._make_cache(ks, vs, seq)
         token = self._sample(logits, generator)

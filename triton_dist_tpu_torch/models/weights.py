@@ -8,7 +8,10 @@ global ones; at world > 1 each rank takes its shard as JAX's ``_specs``
 places it (``dense.py:51-68``; ``models.dense.shard``): ``wqkv``,
 ``mlp_gate``, ``mlp_up`` and ``lm_head`` by contiguous column blocks,
 ``wo`` and ``mlp_down`` by row blocks, the rest whole; with
-``expert_parallel`` the expert slabs by whole experts instead.
+``expert_parallel`` the expert slabs by whole experts instead. Given a
+context (``ctx``), the shard is that of its tensor-parallel axis: on a
+``pp`` × ``tp`` mesh every stage holds its ``tp`` shard of every layer, as
+JAX's ``p_specs`` replicate the parameters over ``pp``.
 
 ``quant_pool_from_numpy`` and ``quant_tensor_from_numpy`` carry the JAX
 package's quantized state (``models/quant.py``: a ``QuantPool`` half or a
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from triton_dist_tpu_torch.models.config import ModelConfig, torch_dtype
-from triton_dist_tpu_torch.models.dense import DenseParams, shard
+from triton_dist_tpu_torch.models.dense import DenseParams, shard, tp_pp_contexts
 from triton_dist_tpu_torch.models.quant import QuantPool, QuantTensor, wire_dtype
 from triton_dist_tpu_torch.runtime.platform import resolve_device
 
@@ -41,9 +44,11 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch
 
 def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
                       device: str | torch.device | None = None, *, rank: int = 0,
-                      world: int = 1, expert_parallel: bool = False) -> DenseParams:
+                      world: int = 1, expert_parallel: bool = False, ctx=None) -> DenseParams:
     """The port's ``DenseParams`` of rank ``rank`` of ``world`` from the JAX
-    fields as global numpy arrays, cast to ``config.dtype``. With
+    fields as global numpy arrays, cast to ``config.dtype``. ``ctx``
+    (``runtime.mesh.DistContext``) stands for ``rank``, ``world`` and a
+    ``device`` of None: its tensor-parallel rank and world. With
     ``expert_parallel`` (a MoE config; JAX ``load_hf_weights(...,
     expert_parallel=True)``) each rank keeps whole experts of the expert
     slabs (``EP_SHARD_DIM``). Raises on a missing field, a shape that does
@@ -51,6 +56,10 @@ def params_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
     c = config
     if expert_parallel and not c.is_moe:
         raise ValueError("expert_parallel needs a MoE config")
+    if ctx is not None:
+        tp = tp_pp_contexts(ctx)[0]
+        rank, world = (0, 1) if tp is None else (tp.rank, tp.world)
+        device = ctx.device if device is None else device
     device = resolve_device(device)
     dt = torch_dtype(c)
     L, d, hd, V = c.num_layers, c.hidden_size, c.head_dim, c.vocab_size

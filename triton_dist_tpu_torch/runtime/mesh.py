@@ -10,6 +10,16 @@ symmetric heap (``shmem/symm.py``). Rank r takes card ``r %
 torch.cuda.device_count()``, so four ranks may own four cards or share one.
 No NCCL is used.
 
+A context may carry named axes, laid out as JAX's ``_build_mesh`` lays
+devices out (a row-major reshape, ``triton_dist_tpu/runtime/mesh.py:95-107``):
+at ``("pp", "tp")`` of ``(2, 2)`` global rank r sits at ``pp = r // 2``,
+``tp = r % 2``. ``ctx.axis(name)`` is then a one-axis context over the
+ranks that differ from this one along that axis alone, with its own
+``gloo`` subgroup and, on CUDA, its own heap (its own barrier pads, flags,
+epoch, plain slot and workspaces: a rank in two groups must not read one
+group's signal as the other's). Every function here runs over the ranks of
+the context it is given.
+
 ``all_gather``, ``psum``, ``psum_scatter``, ``all_to_all``, ``ppermute``
 and ``ring_ag_chunks`` stand in for XLA's collectives (the ``xla`` mode,
 the small-M routes of the collective matmuls, the expert-parallel
@@ -32,24 +42,42 @@ from triton_dist_tpu_torch.shmem.symm import PLAIN_BYTES, SymmHeap
 
 @dataclasses.dataclass
 class DistContext:
-    """One rank's handle on the tensor-parallel group: ``rank``, ``world``,
-    its ``device``, the ``gloo`` ``group`` and, on CUDA, its ``heap``."""
+    """One rank's handle on a group of ranks: ``rank``, ``world``, its
+    ``device``, the ``gloo`` ``group`` and, on CUDA, its ``heap``. A context
+    of one axis (``axis_names``, by default the tensor-parallel ``("tp",)``)
+    is that axis; a context of several (``split_axes``) spans all of them
+    and holds one context per axis in ``axes``."""
 
     rank: int
     world: int
     device: torch.device
     group: object = None
     heap: SymmHeap | None = None
+    axis_names: tuple[str, ...] = ("tp",)
+    axes: dict[str, "DistContext"] = dataclasses.field(default_factory=dict)
+
+    def axis(self, name: str) -> "DistContext":
+        """The one-axis context of axis ``name`` (this context when it is its
+        only axis)."""
+        if name in self.axes:
+            return self.axes[name]
+        if self.axis_names == (name,):
+            return self
+        raise KeyError(f"no mesh axis {name!r} in {self.axis_names}")
 
     def on_cpu(self) -> "DistContext":
-        """The same ranks and group with CPU tensors (plain versions)."""
-        return DistContext(self.rank, self.world, torch.device("cpu"), self.group, None)
+        """The same ranks and groups with CPU tensors (plain versions)."""
+        return DistContext(self.rank, self.world, torch.device("cpu"), self.group, None, self.axis_names,
+                           {n: a.on_cpu() for n, a in self.axes.items()})
 
     def check_status(self) -> None:
         """Raise ``CollectiveAbort`` if a device-side wait of this rank
-        expired (waits for the card); nothing on the CPU."""
+        expired, on any of its axes (waits for the card); nothing on the
+        CPU."""
         if self.heap is not None:
             self.heap.check()
+        for a in self.axes.values():
+            a.check_status()
 
     def host_barrier(self) -> None:
         """A ``gloo`` barrier of the host processes."""
@@ -59,11 +87,15 @@ class DistContext:
 
 
 def initialize_distributed(rank: int, world: int, init_method: str,
-                           device: str | torch.device | None = None) -> DistContext:
+                           device: str | torch.device | None = None, *,
+                           axis_names: tuple[str, ...] = ("tp",),
+                           axis_sizes: tuple[int, ...] | None = None) -> DistContext:
     """Join the group of ``world`` ranks at ``init_method`` (for instance
     ``tcp://localhost:<port>`` or ``file://<path>``) as ``rank``. ``device``
     None means CUDA card ``rank % device_count`` (raises without CUDA);
-    ``"cpu"`` runs the plain versions."""
+    ``"cpu"`` runs the plain versions. More than one of ``axis_names``
+    (with ``axis_sizes``, whose product is ``world``) lays the ranks out
+    over those axes (``split_axes``)."""
     import torch.distributed as dist
 
     if device is not None and torch.device(device).type == "cpu":
@@ -75,7 +107,55 @@ def initialize_distributed(rank: int, world: int, init_method: str,
     dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world)
     group = dist.group.WORLD
     heap = SymmHeap(rank, world, dev, group) if dev.type == "cuda" else None
-    return DistContext(rank, world, dev, group, heap)
+    ctx = DistContext(rank, world, dev, group, heap, tuple(axis_names[:1]))
+    return ctx if len(axis_names) == 1 else split_axes(ctx, axis_names, axis_sizes)
+
+
+def split_axes(ctx: DistContext, axis_names: tuple[str, ...], axis_sizes: tuple[int, ...]) -> DistContext:
+    """``ctx``'s ranks laid out row-major over named axes (JAX
+    ``_build_mesh``): a context over all of them whose ``axes`` hold one
+    context per axis, each with its own ``gloo`` subgroup and, on CUDA, its
+    own heap. Every rank of ``ctx`` calls it with the same arguments (the
+    subgroups are made collectively, in one order). One axis: ``ctx``'s
+    group and heap under that name."""
+    import math
+
+    import torch.distributed as dist
+
+    names, sizes = tuple(axis_names), tuple(int(n) for n in axis_sizes)
+    if len(names) != len(sizes) or len(set(names)) != len(names):
+        raise ValueError(f"axis names {names} and sizes {sizes} do not pair up")
+    if math.prod(sizes) != ctx.world:
+        raise ValueError(f"axis sizes {sizes} do not multiply to the world {ctx.world}")
+    if len(names) == 1:
+        return DistContext(ctx.rank, ctx.world, ctx.device, ctx.group, ctx.heap, names)
+    if ctx.world != dist.get_world_size():
+        raise ValueError("split_axes lays out the whole process group (initialize_distributed's context)")
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+    coord = [(ctx.rank // st) % n for st, n in zip(strides, sizes)]
+    axes = {}
+    for a, name in enumerate(names):
+        for base in range(ctx.world):
+            if (base // strides[a]) % sizes[a]:
+                continue  # each group once, from its member at coordinate 0
+            ranks = [base + i * strides[a] for i in range(sizes[a])]
+            group = dist.new_group(ranks=ranks, backend="gloo")
+            if ctx.rank in ranks:
+                mine, my_ranks = group, ranks
+        heap = None
+        if ctx.device.type == "cuda":
+            heap = SymmHeap(coord[a], sizes[a], ctx.device, mine, axis=name, global_ranks=my_ranks)
+        axes[name] = DistContext(coord[a], sizes[a], ctx.device, mine, heap, (name,))
+    return DistContext(ctx.rank, ctx.world, ctx.device, ctx.group, ctx.heap, names, axes)
+
+
+def close(ctx: DistContext) -> None:
+    """Free the heaps of ``ctx`` and of its axes (after a synchronize); the
+    CPU has none."""
+    for a in ctx.axes.values():
+        close(a)
+    if ctx.heap is not None:
+        ctx.heap.close()
 
 
 def _parts(ctx: DistContext, x: torch.Tensor, rows: tuple[int, int] | None = None) -> torch.Tensor:

@@ -54,7 +54,7 @@ WAIT_TIMEOUT_S = 30.0
 
 #: Phase ids of the status word, in the order of ``csrc/shmem.cuh``.
 PHASES = ("barrier", "ag_recv", "rs_recv", "ar_recv", "ar_bcast", "a2a_recv", "ep_dispatch", "ep_combine",
-          "ag_kv_recv")
+          "ag_kv_recv", "pp_recv")
 
 _SIGNATURES = {
     "tdt_heap_alloc": [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p],
@@ -92,12 +92,16 @@ class SymmHeap:
     counts collective calls; kernels signal with it and read the halves of
     the pads and the workspace of its parity."""
 
-    def __init__(self, rank: int, world: int, device: torch.device, group):
+    def __init__(self, rank: int, world: int, device: torch.device, group, *, axis: str | None = None,
+                 global_ranks: list[int] | None = None):
         import torch.distributed as dist
 
         if not 1 <= world <= MAX_WORLD:
             raise ValueError(f"world {world} outside 1..{MAX_WORLD}")
         self.rank, self.world, self.device, self.group = rank, world, device, group
+        #: The mesh axis the group spans and the global rank of each of its
+        #: ranks (an axis context's heap), for the abort message.
+        self.axis, self.global_ranks = axis, global_ranks
         self.nbytes = HEAP_BYTES
         #: Bound of this rank's waits (ns); a test may shorten it.
         self.timeout_ns = int(WAIT_TIMEOUT_S * 1e9)
@@ -180,8 +184,13 @@ class SymmHeap:
         if code:
             name = PHASES[phase] if 0 <= phase < len(PHASES) else f"phase {phase}"
             raise CollectiveAbort(
-                f"rank {self.rank}: a collective wait expired in phase {name!r} waiting for rank {peer} "
-                f"(call {epoch}, bound {self.timeout_ns / 1e9:g} s)")
+                f"{self._who(self.rank)}: a collective wait expired in phase {name!r} waiting for "
+                f"{self._who(peer)} (call {epoch}, bound {self.timeout_ns / 1e9:g} s)")
+
+    def _who(self, rank: int) -> str:
+        if self.axis is None:
+            return f"rank {rank}"
+        return f"{self.axis} rank {rank} (global rank {self.global_ranks[rank]})"
 
     def close(self) -> None:
         """Unmap the peers' heaps and free this one (after a synchronize)."""
